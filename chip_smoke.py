@@ -6,19 +6,36 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
-2. build every CUDA kernel from ``teaserpp_tpu_torch/csrc`` (one ``nvcc``
-   each) and print the build time;
-3. kernels: each kernel against its plain PyTorch version on the card, word
-   for word, at the main path's shape (each problem with its own cloud) and
-   at the size at which the JAX package runs its Pallas counterpart, timed
-   with CUDA events;
-4. path: ``solve_batch`` on 512 bunny-shaped problems (N=1889, 1700 outlier
-   draws with replacement, so ~59% outliers; bench.py's parameters) with
-   every launch count set to 0 just
-   before and read just after; every problem must pass <0.1 deg rotation
-   and <0.01 m translation error; prints registrations/s and stage times;
+2. build every CUDA kernel and the host library from
+   ``teaserpp_tpu_torch/csrc`` (one compiler process each, all started
+   together) and print the build time;
+3. kernels: each kernel against its plain PyTorch version on the card, exactly
+   equal, timed with CUDA events: ``trim_bits`` at (512, 1889) (each problem
+   with its own cloud, a quarter padded), (1, 65536) and (1, 100000);
+   ``trim_degrees`` at (512, 1889) and (1, 100000), the second also against
+   the popcount sums of ``trim_bits``; ``trim_adjacency_i8`` at (64, 1889) and
+   (1, 16384), with its agreement share with ``trim_adjacency_dense``;
+4. batched path: ``solve_batch`` on 512 bunny-shaped problems (N=1889, 1700
+   outlier draws with replacement, so ~59% outliers; bench.py's parameters)
+   with every launch count set to 0 just before and read just after; every
+   problem must pass <0.1 deg rotation and <0.01 m translation error; prints
+   registrations/s and stage times;
 5. parity: the same port on the CPU for 4 of those problems must give the
-   same clique masks, and rotation and translation within 1e-4.
+   same clique masks, and rotation and translation within 1e-4;
+6. large path: ``solve_large_sharded`` on one seeded problem of N=100,000
+   correspondences with 90% outliers (scripts/bench_large_single.py's
+   recipe), launch counts set to 0 before and read after; gated on <0.5 deg
+   and <0.02 translation error; prints seconds per solve and stage times;
+7. exact path: ``solve_large_exact`` on the same problem, same gate, and a
+   clique at least as large as the heuristic's;
+8. public kernel operations: ``trim_degrees`` on the N=100,000 problem and
+   ``trim_adjacency_i8`` on its first 16,384 correspondences, through their
+   wrappers with the counts set to 0 before, gated on what the planted
+   inliers imply (as in the JAX package, these two kernels sit on no solver
+   path);
+9. large-path parity: the port on the CPU at N=2,000 against the card's run,
+   both branches: equal ``max_core``, candidate order and clique mask,
+   rotation and translation within 1e-4.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line. Without
 CUDA, or without the package beside it, it exits non-zero and prints no
@@ -40,6 +57,14 @@ N_POINTS = 1889  # the bunny's correspondences (examples/bunny_registration.py)
 N_OUTLIER_DRAWS = 1700
 NOISE_BOUND = 0.001
 HUGE_N = 65536  # the JAX package sends single problems this large to its Pallas kernel
+LARGE_N = 100_000  # scripts/bench_large_single.py's single huge problem
+LARGE_OUTLIER_RATIO = 0.9
+LARGE_NOISE_BOUND = 0.01
+DENSE_N = 16384  # the largest N at which the JAX package builds a dense adjacency
+DENSE_BATCH = 64
+EXACT_N = LARGE_N  # the exact phase's size; cut it if the host search outgrows the budget
+EXACT_TIME_LIMIT_S = 120.0
+LARGE_PARITY_N = 2000
 PARITY_PROBLEMS = 4
 PARITY_TOL = 1e-4  # Frobenius (rotation) / Euclidean (translation), as the tests state
 
@@ -49,6 +74,13 @@ PARITY_TOL = 1e-4  # Frobenius (rotation) / Euclidean (translation), as the test
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12 / 2
 TRIM_OPS_PER_PAIR = 22  # 2 x (3 sub, 3 mul, 2 add) + add, sub, 3 mul, sub
+# Gram-form dense adjacency: per cloud 3 mul + 2 add (product), add, mul, sub,
+# max = 9; then one sub and one compare (the abs is an operand modifier)
+GRAM_OPS_PER_PAIR = 2 * 9 + 2
+GRAM_SQRTS_PER_PAIR = 2
+# An SM has 128 FP32 lanes and 16 special-function units (Hopper white
+# paper), so a square root's MUFU instruction runs at 1/8 of the FP32 rate
+SFU_OPS_PER_S = FP32_OPS_PER_S / 8
 
 # The example's fixed SE(3) transform (examples/bunny_registration.py),
 # projected to its orthogonal polar factor.
@@ -84,6 +116,42 @@ def make_problems(batch: int, n: int, seed: int = 0, shared_cloud: bool = True):
         srcs.append(cloud)
         dsts.append(tgt)
     return np.stack(srcs).astype(np.float32), np.stack(dsts).astype(np.float32)
+
+
+def make_large_problem(n: int, seed: int = 0):
+    """One huge problem by scripts/bench_large_single.py's recipe: cloud
+    uniform in [-1, 1]^3, rotation 0.5 rad about z, t = (0.3, -0.2, 0.4),
+    uniform noise +-nb/2, and 90% of ``dst`` replaced by uniform [-3, 3]^3.
+    Returns (src, dst (3, n) float32, R, t, inlier mask)."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-1, 1, size=(3, n))
+    theta = 0.5
+    r_true = np.array([[np.cos(theta), -np.sin(theta), 0],
+                       [np.sin(theta), np.cos(theta), 0],
+                       [0, 0, 1.0]])
+    t_true = np.array([0.3, -0.2, 0.4])
+    dst = r_true @ src + t_true[:, None]
+    dst += rng.uniform(-LARGE_NOISE_BOUND / 2, LARGE_NOISE_BOUND / 2, size=dst.shape)
+    n_out = int(LARGE_OUTLIER_RATIO * n)
+    out = rng.choice(n, size=n_out, replace=False)
+    dst[:, out] = rng.uniform(-3, 3, size=(3, n_out))
+    inlier = np.ones(n, bool)
+    inlier[out] = False
+    return src.astype(np.float32), dst.astype(np.float32), r_true, t_true, inlier
+
+
+def large_params():
+    from teaserpp_tpu_torch.params import (
+        InlierSelectionMode,
+        RobustRegistrationSolverParams,
+    )
+
+    return RobustRegistrationSolverParams(
+        noise_bound=LARGE_NOISE_BOUND,
+        estimate_scaling=False,
+        inlier_selection_mode=InlierSelectionMode.KCORE_HEU,
+        kcore_heuristic_threshold=0.0,
+    )
 
 
 def bench_params():
@@ -123,9 +191,16 @@ def time_ms(fn, reps: int, device) -> float:
     return statistics.median(times)
 
 
+def _bound(times_ms: dict) -> tuple[float, str]:
+    """The largest of the candidate least times, and whether bytes or
+    operations set it."""
+    name = max(times_ms, key=times_ms.get)
+    return times_ms[name], "bytes" if name == "bytes" else "operations"
+
+
 def trim_bits_bound_ms(valid: np.ndarray) -> tuple[float, str, int]:
     """Least time for the TRIM bits of inputs masked by ``valid`` (B, N):
-    FP32 issue vs bytes moved, and the pairs counted.
+    FP32 instruction time vs bytes moved, and the pairs counted.
 
     The predicate is symmetric in (i, j), bit for bit, and a diagonal or
     padded pair needs none, so the work is one predicate per unordered pair
@@ -136,19 +211,84 @@ def trim_bits_bound_ms(valid: np.ndarray) -> tuple[float, str, int]:
     pairs = int(np.sum(m * (m - 1) // 2))
     words = (n + 31) // 32
     nbytes = bsz * (2 * 3 * n * 4 + n) + bsz * words * n * 4
-    t_ops = TRIM_OPS_PER_PAIR * pairs / FP32_OPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    if t_ops >= t_bytes:
-        return t_ops, "operations", pairs
-    return t_bytes, "bytes", pairs
+    return (*_bound({
+        "fp32": TRIM_OPS_PER_PAIR * pairs / FP32_OPS_PER_S * 1e3,
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+    }), pairs)
 
 
-def kernel_phase(device, seed: int = 0):
-    """trim_bits against its plain version at (512, 1889), each problem with
-    its own cloud and a quarter of them padded, and at (1, 65536)."""
+def trim_degrees_bound_ms(bsz: int, n: int) -> tuple[float, str, int]:
+    """Least time for the TRIM degrees of (B, 3, N) points: the same
+    predicate per unordered pair as the bits, against the points read and
+    one int32 per vertex written."""
+    pairs = bsz * n * (n - 1) // 2
+    nbytes = bsz * (2 * 3 * n * 4 + n * 4)
+    return (*_bound({
+        "fp32": TRIM_OPS_PER_PAIR * pairs / FP32_OPS_PER_S * 1e3,
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+    }), pairs)
+
+
+def trim_adjacency_bound_ms(bsz: int, n: int) -> tuple[float, str, int, dict]:
+    """Least time for the Gram-form int8 adjacency of (B, 3, N) points.
+
+    The entry is symmetric in (i, j), bit for bit (every sum and product
+    commutes), so the work is two Gram-form distances per unordered pair:
+    FP32 instruction time, two square roots at the special-function rate, and the N^2
+    output bytes; the largest of the three bounds it.
+    """
+    pairs = bsz * n * (n - 1) // 2
+    nbytes = bsz * (2 * 3 * n * 4 + n * n)
+    terms = {
+        "fp32": GRAM_OPS_PER_PAIR * pairs / FP32_OPS_PER_S * 1e3,
+        "sqrt": GRAM_SQRTS_PER_PAIR * pairs / SFU_OPS_PER_S * 1e3,
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+    }
+    return (*_bound(terms), pairs, terms)
+
+
+def _to(device, *arrays):
     import torch
+
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _max_abs_diff(got, want) -> int:
+    import torch
+
+    if torch.equal(got, want):
+        return 0
+    return int((got.long() - want.long()).abs().max())
+
+
+def _compare_and_time(kernel, plain, device, reps: int, plain_reps: int) -> dict:
+    """Run ``kernel()`` and ``plain()`` once, compare them exactly, then time both."""
+    got = kernel()
+    want = plain()
+    _sync(device)
+    err = _max_abs_diff(got, want)
+    res = dict(equal=err == 0, elements_differing=int((got != want).sum()),
+               max_abs_err=err)
+    del got, want
+    res["ms"] = time_ms(kernel, reps, device)
+    res["plain_ms"] = time_ms(plain, plain_reps, device)
+    return res
+
+
+def kernel_phase(device, seed: int = 0) -> dict:
+    """Every kernel against its plain version, exactly, at the shapes listed
+    in the module docstring. Returns {kernel name: [one dict per shape]}."""
+    import torch
+    from teaserpp_tpu_torch.clique.kcore import active_degrees
     from teaserpp_tpu_torch.ops import cuda_kernels as ck
-    from teaserpp_tpu_torch.ops.tims import trim_beta
+    from teaserpp_tpu_torch.ops.tims import trim_adjacency_dense, trim_beta
 
     beta = trim_beta(NOISE_BOUND)
     rng = np.random.default_rng(seed)
@@ -158,32 +298,82 @@ def kernel_phase(device, seed: int = 0):
     for p in range(bsz - bsz // 4, bsz):  # a quarter padded
         valid[p, rng.integers(n // 2, n):] = False
     huge_src, huge_dst = make_problems(1, HUGE_N, seed=seed + 7)
-    cases = [
-        (src_main, dst_main, valid),
-        (huge_src, huge_dst, np.ones((1, HUGE_N), bool)),
-    ]
-    results = []
-    for s_np, d_np, v_np in cases:
-        s = torch.from_numpy(s_np).to(device)
-        d = torch.from_numpy(d_np).to(device)
-        v = torch.from_numpy(v_np).to(device)
-        got = ck.trim_bits(s, d, v, beta)
-        want = ck.trim_adjacency_bits_plain(s, d, v, beta)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        equal = bool(torch.equal(got, want))
-        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-        ms = time_ms(lambda: ck.trim_bits(s, d, v, beta), 20, device)
-        plain_ms = time_ms(lambda: ck.trim_adjacency_bits_plain(s, d, v, beta), 3, device)
+    large_src, large_dst, *_ = make_large_problem(LARGE_N, seed=seed)
+    large_src, large_dst = large_src[None], large_dst[None]
+    large_beta = trim_beta(LARGE_NOISE_BOUND)
+    results = {"trim_bits": [], "trim_degrees": [], "trim_adjacency_i8": []}
+
+    def shape_of(s):
+        return dict(batch=int(s.shape[0]), n=int(s.shape[-1]))
+
+    # trim_bits
+    for s_np, d_np, v_np, bt in [
+        (src_main, dst_main, valid, beta),
+        (huge_src, huge_dst, np.ones((1, HUGE_N), bool), beta),
+        (large_src, large_dst, np.ones((1, large_src.shape[-1]), bool), large_beta),
+    ]:
+        s, d, v = _to(device, s_np, d_np, v_np)
+        res = _compare_and_time(
+            lambda: ck.trim_bits(s, d, v, bt),
+            lambda: ck.trim_adjacency_bits_plain(s, d, v, bt), device, 20, 3)
         bound_ms, bound_by, pairs = trim_bits_bound_ms(v_np)
-        results.append(dict(
-            batch=int(s.shape[0]), n=int(s.shape[-1]), equal=equal,
-            words_differing=int((got != want).sum()), max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            bound_pairs=pairs,
-        ))
-        del s, d, v, got, want
+        results["trim_bits"].append(dict(
+            **shape_of(s), **res, bound_ms=bound_ms, bound_by=bound_by, bound_pairs=pairs))
+        del s, d, v
+
+    # trim_degrees: no validity mask, so every point of the main shape counts
+    for s_np, d_np, bt, against_bits in [
+        (src_main, dst_main, beta, False),
+        (large_src, large_dst, large_beta, True),
+    ]:
+        s, d = _to(device, s_np, d_np)
+        res = _compare_and_time(
+            lambda: ck.trim_degrees(s, d, bt),
+            lambda: ck.trim_degrees_plain(s, d, bt), device, 20, 3)
+        if against_bits:
+            all_valid = torch.ones(s.shape[0], s.shape[-1], dtype=torch.bool, device=device)
+            bits = ck.trim_bits(s, d, all_valid, bt)
+            res["equals_popcount_of_trim_bits"] = bool(torch.equal(
+                ck.trim_degrees(s, d, bt), active_degrees(bits, all_valid)))
+            res["equal"] = res["equal"] and res["equals_popcount_of_trim_bits"]
+            del bits
+        bound_ms, bound_by, pairs = trim_degrees_bound_ms(s.shape[0], s.shape[-1])
+        results["trim_degrees"].append(dict(
+            **shape_of(s), **res, bound_ms=bound_ms, bound_by=bound_by, bound_pairs=pairs))
+        del s, d
+
+    # trim_adjacency_i8
+    dn = min(DENSE_N, large_src.shape[-1])
+    for s_np, d_np, nb in [
+        (src_main[:DENSE_BATCH], dst_main[:DENSE_BATCH], NOISE_BOUND),
+        (large_src[..., :dn], large_dst[..., :dn], LARGE_NOISE_BOUND),
+    ]:
+        s, d = _to(device, s_np, d_np)
+        bt = trim_beta(nb)
+        res = _compare_and_time(
+            lambda: ck.trim_adjacency_i8(s, d, bt),
+            lambda: ck.trim_adjacency_i8_plain(s, d, bt), device, 20, 3)
+        got = ck.trim_adjacency_i8(s, d, bt)
+        dense = trim_adjacency_dense(s, d, nb)
+        res["agreement_with_trim_adjacency_dense"] = float(
+            (got.bool() == dense).sum(dtype=torch.float64) / dense.numel())
+        res["diagonal_zero"] = not bool(got.diagonal(dim1=-2, dim2=-1).any())
+        del got, dense
+        res["equal"] = (res["equal"] and res["diagonal_zero"]
+                        and res["agreement_with_trim_adjacency_dense"] >= 0.9999)
+        bound_ms, bound_by, pairs, terms = trim_adjacency_bound_ms(s.shape[0], s.shape[-1])
+        results["trim_adjacency_i8"].append(dict(
+            **shape_of(s), **res, bound_ms=bound_ms, bound_by=bound_by,
+            bound_pairs=pairs, bound_terms_ms=terms))
+        del s, d
     return results
+
+
+def _require_launched(device, launches: dict, path: str, kernels: list) -> None:
+    """Fail if a kernel that ``path`` runs on the card was launched no time."""
+    missing = [k for k in kernels if launches[k] == 0]
+    if device.type == "cuda" and missing:
+        raise AssertionError(f"{path} did not launch {missing}: {launches}")
 
 
 def path_phase(device, src, dst, repeats: int = 5):
@@ -224,8 +414,7 @@ def path_phase(device, src, dst, repeats: int = 5):
             f"accuracy gate failed: max rot {rot_err.max()} deg, max t {t_err.max()} m, "
             f"{int((~sol_np.valid).sum())} invalid"
         )
-    if device.type == "cuda" and any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the path did not launch: {launches}")
+    _require_launched(device, launches, "solve_batch", ["trim_bits"])
 
     windows = []
     for _ in range(3):
@@ -277,6 +466,193 @@ def parity_phase(src, dst, sol_dev):
                     cpu.rotation_iterations, sol_dev.rotation_iterations[:k])))
 
 
+def _large_gate(name: str, res, r_true, t_true, inlier) -> dict:
+    """The JAX tests' limits for the huge-N path: valid, <0.5 deg, <0.02."""
+    from teaserpp_tpu_torch.utils.metrics import rotation_error_deg, translation_error
+
+    sol = res.solution
+    if sol.rotation.shape != (3, 3) or sol.translation.shape != (3,):
+        raise AssertionError(f"{name}: solution has the wrong shape")
+    if not (np.isfinite(sol.rotation).all() and np.isfinite(sol.translation).all()):
+        raise AssertionError(f"{name}: non-finite solution")
+    rot_err = rotation_error_deg(sol.rotation, r_true)
+    t_err = translation_error(sol.translation, t_true)
+    members = int(sol.clique_mask.sum())
+    true_members = int((sol.clique_mask & inlier).sum())
+    out = dict(valid=bool(sol.valid), rot_err_deg=rot_err, trans_err=t_err,
+               max_core=int(res.max_core), clique_size=int(res.clique_size),
+               clique_true_inlier_share=true_members / max(members, 1),
+               true_inliers=int(inlier.sum()))
+    if not (out["valid"] and rot_err < 0.5 and t_err < 0.02 and members == out["clique_size"]):
+        raise AssertionError(f"{name}: accuracy gate failed: {out}")
+    return out
+
+
+def large_phase(device, n: int, repeats: int = 3):
+    """The huge-N path: solve_large_sharded on one problem, gated on accuracy."""
+    from teaserpp_tpu_torch import solve_large_sharded
+    from teaserpp_tpu_torch.convert import large_result_to_numpy
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+
+    src, dst, r_true, t_true, inlier = make_large_problem(n)
+    params = large_params()
+    src_d, dst_d = _to(device, src, dst)
+
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res = solve_large_sharded(src_d, dst_d, params, device=device)
+    _sync(device)
+    first_s = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    _require_launched(device, launches, "solve_large_sharded", ["trim_bits"])
+    res_np = large_result_to_numpy(res)
+    gate = _large_gate("solve_large_sharded", res_np, r_true, t_true, inlier)
+
+    times = []
+    for _ in range(repeats):
+        _sync(device)
+        t0 = time.perf_counter()
+        solve_large_sharded(src_d, dst_d, params, device=device)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    stage_ms = {}
+    solve_large_sharded(src_d, dst_d, params, device=device, stage_ms=stage_ms)
+    return dict(
+        n=n, seconds_per_solve=statistics.median(times), seconds_all=times,
+        first_call_s=first_s, stage_ms=stage_ms, launches=launches,
+        gnc_iterations=int(res_np.solution.rotation_iterations), **gate)
+
+
+def exact_phase(device, n: int, heuristic_clique_size=None):
+    """The exact huge-N path: solve_large_exact, same gate, and a clique no
+    smaller than the heuristic's on the same problem."""
+    from teaserpp_tpu_torch import solve_large_exact, solve_large_sharded
+    from teaserpp_tpu_torch.convert import large_result_to_numpy
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+
+    src, dst, r_true, t_true, inlier = make_large_problem(n)
+    params = large_params()
+    src_d, dst_d = _to(device, src, dst)
+    if heuristic_clique_size is None:
+        heuristic_clique_size = int(
+            solve_large_sharded(src_d, dst_d, params, device=device).clique_size)
+
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res = solve_large_exact(src_d, dst_d, params, time_limit=EXACT_TIME_LIMIT_S,
+                            device=device)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    _require_launched(device, launches, "solve_large_exact", ["trim_bits"])
+    gate = _large_gate("solve_large_exact", large_result_to_numpy(res), r_true, t_true, inlier)
+    if gate["clique_size"] < heuristic_clique_size:
+        raise AssertionError(
+            f"exact clique {gate['clique_size']} smaller than the heuristic's "
+            f"{heuristic_clique_size}")
+    return dict(n=n, seconds=seconds, time_limit_s=EXACT_TIME_LIMIT_S, launches=launches,
+                heuristic_clique_size=heuristic_clique_size, **gate)
+
+
+def ops_phase(device, n: int, dense_n: int):
+    """The two kernels that sit on no solver path, driven as a user would:
+    TRIM degrees of the huge problem and the dense int8 adjacency of its
+    first ``dense_n`` correspondences, gated on what the planted inliers
+    imply. Any two inliers are consistent (their distances differ by at most
+    2 sqrt(3) nb/2 < 2 nb), so an inlier's degree is at least the inlier
+    count less one, and the inlier block of the adjacency is all ones off the
+    diagonal."""
+    import torch
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+    from teaserpp_tpu_torch.ops.tims import trim_beta
+
+    src, dst, _, _, inlier = make_large_problem(n)
+    beta = trim_beta(LARGE_NOISE_BOUND)
+    src_d, dst_d = _to(device, src[None], dst[None])
+    dense_n = min(dense_n, n)
+    src_s, dst_s = src_d[..., :dense_n].contiguous(), dst_d[..., :dense_n].contiguous()
+    inl = torch.from_numpy(inlier).to(device)
+
+    ck.reset_launches()
+    deg = ck.trim_degrees(src_d, dst_d, beta)[0]
+    adj = ck.trim_adjacency_i8(src_s, dst_s, beta)[0]
+    _sync(device)
+    launches = dict(ck.LAUNCHES)
+    _require_launched(device, launches, "the public kernel operations",
+                      ["trim_degrees", "trim_adjacency_i8"])
+
+    n_in = int(inlier.sum())
+    inl_s = inl[:dense_n]
+    block = adj[inl_s][:, inl_s]
+    out = dict(
+        n=n, dense_n=dense_n, launches=launches,
+        degrees_shape_ok=tuple(deg.shape) == (n,) and deg.dtype == torch.int32,
+        inlier_degree_min=int(deg[inl].min()), inliers=n_in,
+        outlier_degree_mean=float(deg[~inl].double().mean()),
+        adjacency_shape_ok=tuple(adj.shape) == (dense_n, dense_n) and adj.dtype == torch.int8,
+        adjacency_symmetric=bool(torch.equal(adj, adj.T)),
+        adjacency_diagonal_zero=not bool(adj.diagonal().any()),
+        inlier_block_complete=int(block.sum()) == int(inl_s.sum()) * (int(inl_s.sum()) - 1),
+        # the first dense_n vertices' degrees inside that subgraph never exceed the whole graph's
+        subgraph_degrees_within=bool((adj.sum(dim=0, dtype=torch.int32) <= deg[:dense_n]).all()),
+    )
+    ok = (out["degrees_shape_ok"] and out["inlier_degree_min"] >= n_in - 1
+          and out["adjacency_shape_ok"] and out["adjacency_symmetric"]
+          and out["adjacency_diagonal_zero"] and out["inlier_block_complete"]
+          and out["subgraph_degrees_within"])
+    if not ok:
+        raise AssertionError(f"public kernel operations failed their gate: {out}")
+    return out
+
+
+def large_parity_phase(device, n: int):
+    """The port's huge-N path on the CPU against ``device`` at a small N: the
+    heuristic solve in both branches (dense peel, and bit words with the
+    binary-search core) and the exact solve."""
+    import torch
+    from teaserpp_tpu_torch import solve_large_exact, solve_large_sharded
+    from teaserpp_tpu_torch.convert import large_result_to_numpy
+    from teaserpp_tpu_torch.parallel.sharded import candidate_scores, top_candidates
+
+    src, dst, *_ = make_large_problem(n)
+    params = large_params()
+    m = min(256, n)
+
+    def run(branch, threshold, dev):
+        """-> (candidate order or None, the branch's result as numpy)."""
+        if branch == "exact":
+            # one search thread: with several, which of two equal cliques
+            # wins is a matter of timing
+            return None, large_result_to_numpy(solve_large_exact(
+                src, dst, params, time_limit=EXACT_TIME_LIMIT_S, num_threads=1, device=dev))
+        s, d = _to(dev, src[None], dst[None])
+        score, _ = candidate_scores(s, d, params, threshold)
+        return top_candidates(score, m).cpu().numpy(), large_result_to_numpy(
+            solve_large_sharded(src, dst, params, subgraph_size=m,
+                                blocked_threshold=threshold, device=dev))
+
+    out = []
+    for branch, threshold in (("dense", 16384), ("bits", 64), ("exact", None)):
+        top_c, res_c = run(branch, threshold, torch.device("cpu"))
+        top_d, res_d = run(branch, threshold, device)
+        row = dict(
+            branch=branch, n=n,
+            max_core_equal=int(res_c.max_core) == int(res_d.max_core),
+            top_idx_equal=branch == "exact" or bool(np.array_equal(top_c, top_d)),
+            clique_masks_equal=bool(np.array_equal(
+                res_c.solution.clique_mask, res_d.solution.clique_mask)),
+            rotation_frobenius=float(np.linalg.norm(
+                res_c.solution.rotation - res_d.solution.rotation)),
+            translation=float(np.linalg.norm(
+                res_c.solution.translation - res_d.solution.translation)),
+        )
+        if not (row["max_core_equal"] and row["top_idx_equal"] and row["clique_masks_equal"]
+                and row["rotation_frobenius"] <= PARITY_TOL and row["translation"] <= PARITY_TOL):
+            raise AssertionError(f"CPU/GPU parity of the large path failed: {row}")
+        out.append(row)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -299,19 +675,20 @@ def main() -> int:
     libs = _build.build_all()
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "libraries": {k: v.name for k, v in libs.items()}}), flush=True)
-    for so in libs.values():
+    for name, so in libs.items():
         log = so.with_name(so.name + ".log")
         if log.exists():
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
-                    print("ptxas:", line.strip())
+                    print(f"ptxas {name}:", line.strip())
 
     device = torch.device("cuda")
     shapes = kernel_phase(device)
-    for r in shapes:
-        print(json.dumps({"trim_bits_shape": r}), flush=True)
-        if not r["equal"]:
-            raise AssertionError(f"trim_bits differs from its plain version: {r}")
+    for name, rows in shapes.items():
+        for r in rows:
+            print(json.dumps({f"{name}_shape": r}), flush=True)
+            if not r["equal"]:
+                raise AssertionError(f"{name} differs from its plain version: {r}")
 
     src, dst = make_problems(BATCH, N_POINTS)
     sol, path = path_phase(device, src, dst)
@@ -320,22 +697,54 @@ def main() -> int:
     parity = parity_phase(src, dst, sol)
     print(json.dumps({"parity": parity}), flush=True)
 
-    main_shape = shapes[0]
-    kernels = [dict(
-        name="trim_bits",
-        route="cuda",
-        source="teaserpp_tpu_torch/csrc/trim_bits.cu",
-        replaces="teaserpp_tpu/ops/pallas_kernels.py:165",
-        launches=path["launches"]["trim_bits"],
-        max_abs_err=max(r["max_abs_err"] for r in shapes),
-        equal=all(r["equal"] for r in shapes),
-        ms=main_shape["ms"],
-        plain_ms=main_shape["plain_ms"],
-        bound_ms=main_shape["bound_ms"],
-        bound_by=main_shape["bound_by"],
-        library_ms=None,  # no PyTorch call computes the packed TRIM predicate
-        shapes=shapes,
-    )]
+    large = large_phase(device, LARGE_N)
+    print(json.dumps({"large_path": large, "card": card}), flush=True)
+
+    exact = exact_phase(
+        device, EXACT_N, large["clique_size"] if EXACT_N == LARGE_N else None)
+    print(json.dumps({"exact_path": exact, "card": card}), flush=True)
+
+    ops = ops_phase(device, LARGE_N, DENSE_N)
+    print(json.dumps({"public_kernel_ops": ops}), flush=True)
+
+    large_parity = large_parity_phase(device, LARGE_PARITY_N)
+    print(json.dumps({"large_parity": large_parity}), flush=True)
+
+    # which shape's numbers stand at the top of each kernel's entry: the one
+    # its path gives it
+    paths = {"solve_batch": path["launches"], "solve_large_sharded": large["launches"],
+             "solve_large_exact": exact["launches"], "public_kernel_ops": ops["launches"]}
+    entries = [
+        ("trim_bits", "teaserpp_tpu_torch/csrc/trim_bits.cu",
+         "teaserpp_tpu/ops/pallas_kernels.py:165", 0),
+        ("trim_degrees", "teaserpp_tpu_torch/csrc/trim_degrees.cu",
+         "teaserpp_tpu/ops/pallas_kernels.py:244", 1),
+        ("trim_adjacency_i8", "teaserpp_tpu_torch/csrc/trim_adjacency.cu",
+         "teaserpp_tpu/ops/pallas_kernels.py:59", 1),
+    ]
+    kernels = []
+    for name, source, replaces, main_index in entries:
+        rows = shapes[name]
+        main_shape = rows[main_index]
+        by_path = {p: counts[name] for p, counts in paths.items() if counts[name]}
+        kernels.append(dict(
+            name=name,
+            route="cuda",
+            source=source,
+            replaces=replaces,
+            launches=sum(by_path.values()),
+            launches_by_path=by_path,
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            equal=all(r["equal"] for r in rows),
+            ms=main_shape["ms"],
+            plain_ms=main_shape["plain_ms"],
+            bound_ms=main_shape["bound_ms"],
+            bound_by=main_shape["bound_by"],
+            library_ms=None,  # no single PyTorch call computes any of these functions
+            shapes=rows,
+        ))
+        if kernels[-1]["launches"] == 0:
+            raise AssertionError(f"{name} was launched on no path: {paths}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,8 +5,11 @@ beside it with the same module names. It imports neither JAX nor the JAX
 package. Entry points run on CUDA unless called with ``device="cpu"``.
 
 Ported so far: the batched known-scale solve (``solve_batch``) with the
-KCORE_HEU threshold-0 inlier selector and GNC-TLS rotation, whose TRIM
-adjacency bit-pack is a hand-written CUDA kernel (``csrc/trim_bits.cu``).
+KCORE_HEU threshold-0 inlier selector and GNC-TLS rotation, and the huge-N
+single-problem solve on one device (``solve_large_sharded``,
+``solve_large_exact``). The three TPU kernels of the JAX package are
+hand-written CUDA kernels (``csrc/trim_bits.cu``, ``csrc/trim_degrees.cu``,
+``csrc/trim_adjacency.cu``; wrappers in ``ops/cuda_kernels.py``).
 """
 
 from teaserpp_tpu_torch.params import (
@@ -15,14 +18,22 @@ from teaserpp_tpu_torch.params import (
     RotationEstimationAlgorithm,
 )
 from teaserpp_tpu_torch.parallel.batch import pad_problems, solve_batch
+from teaserpp_tpu_torch.parallel.sharded import (
+    LargeSolveResult,
+    solve_large_exact,
+    solve_large_sharded,
+)
 from teaserpp_tpu_torch.solvers.pipeline import PipelineSolution, register_pair
 
 __all__ = [
     "InlierSelectionMode",
+    "LargeSolveResult",
     "PipelineSolution",
     "RobustRegistrationSolverParams",
     "RotationEstimationAlgorithm",
     "pad_problems",
     "register_pair",
     "solve_batch",
+    "solve_large_exact",
+    "solve_large_sharded",
 ]

@@ -1,6 +1,9 @@
 """K-core decomposition over row-packed adjacency bits, batched.
 
-Counterpart of ``teaserpp_tpu/clique/kcore.py``. The batch peel removes, each
+Counterpart of ``teaserpp_tpu/clique/kcore.py``: the level-by-level peel
+(:func:`core_numbers_from_bits`), the binary-search top core
+(:func:`max_core_from_bits`) and the fixed-k core (:func:`kcore_mask_from_bits`).
+The batch peel removes, each
 round, every active vertex whose active degree is at most the current core
 level ``k``; degrees are popcounts of the adjacency words ANDed with the
 packed active set. The JAX package runs one ``lax.while_loop`` per problem
@@ -64,6 +67,94 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return x & 0x3F
 
 
+# Words per chunk of a degree pass: bounds the AND and popcount temporaries
+# to a few hundred MB when one problem's words are GBs (N = 100,000).
+_DEGREE_CHUNK_WORDS = 1 << 25
+
+
+def active_degrees(adj_bits: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Degrees into the active set: ``deg[p, j] = sum_w popcount(adj_bits[p,
+    w, j] & active_bits[p, w])``, ``(B, W, N)`` words and ``(B, N)`` bool ->
+    ``(B, N)`` int32. Summed over chunks of word rows when the words are many;
+    integer sums, so the chunking changes nothing."""
+    bsz, words, n = adj_bits.shape
+    act_bits = pack_bits_u32(active)  # (B, W)
+    step = max(1, _DEGREE_CHUNK_WORDS // max(1, bsz * n))
+    deg = torch.zeros((bsz, n), dtype=torch.int32, device=adj_bits.device)
+    for w0 in range(0, words, step):
+        live = adj_bits[:, w0:w0 + step] & act_bits[:, w0:w0 + step, None]
+        deg += torch.sum(popcount32(live), dim=-2, dtype=torch.int32)
+    return deg
+
+
+def _initial_active(bsz: int, n: int, valid: Optional[torch.Tensor], device) -> torch.Tensor:
+    if valid is None:
+        return torch.ones((bsz, n), dtype=torch.bool, device=device)
+    return valid.to(torch.bool).clone()
+
+
+def _kcore_fixpoint(adj_bits: torch.Tensor, k: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Drop active vertices with active-degree < ``k`` (B, 1) until no problem
+    changes. The k-core is unique, so running every problem until the last
+    one is stable gives each problem its own fixpoint."""
+    while True:
+        keep = active & (active_degrees(adj_bits, active) >= k)
+        if torch.equal(keep, active):  # the round's one host sync
+            return keep
+        active = keep
+
+
+def max_core_from_bits(
+    adj_bits: torch.Tensor, n: int, valid: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Maximum k-core mask and max core number, by binary search over k.
+
+    Counterpart of the JAX package's function of the same name, with a batch
+    dimension: each probe is a bulk-removal fixpoint at ``k = (lo + hi + 1)
+    // 2`` from the last successful probe's survivors; a problem whose search
+    has ended keeps its state. The nested ``lax.while_loop``s are Python
+    loops with one host sync a round. Integer logic only, so mask and
+    ``max_core`` equal the JAX package's exactly.
+
+    Returns (mask (B, N) bool of the max-core vertices, max_core (B,) int32).
+    """
+    bsz = adj_bits.shape[0]
+    base = _initial_active(bsz, n, valid, adj_bits.device)
+    deg0 = active_degrees(adj_bits, base)
+    zero = torch.zeros((), dtype=torch.int32, device=adj_bits.device)
+    hi = torch.where(base, deg0, zero).amax(dim=-1)  # max_core <= max degree
+    lo = torch.zeros_like(hi)
+    while bool((lo < hi).any()):
+        searching = lo < hi
+        k = (lo + hi + 1) // 2
+        probe = _kcore_fixpoint(adj_bits, k[:, None], base)
+        ok = probe.any(dim=-1)
+        lo = torch.where(searching & ok, k, lo)
+        hi = torch.where(searching & ~ok, k - 1, hi)
+        base = torch.where((searching & ok)[:, None], probe, base)
+    return base, lo
+
+
+def kcore_mask_from_bits(
+    adj_bits: torch.Tensor,
+    n: int,
+    k,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(B, N) bool mask of each problem's ``k``-core on row-packed words.
+
+    ``k`` is an int or a (B,) tensor. Bulk-removal fixpoint, as in the JAX
+    package: with a clique lower bound ``lb``, every vertex of a maximum
+    clique lies in the (lb-1)-core, so this mask is a safe pruning before the
+    host exact search.
+    """
+    bsz = adj_bits.shape[0]
+    k = torch.as_tensor(k, dtype=torch.int32, device=adj_bits.device)
+    k = k.expand(bsz)[:, None]
+    active = _initial_active(bsz, n, valid, adj_bits.device)
+    return _kcore_fixpoint(adj_bits, k, active)
+
+
 def core_numbers_from_bits(
     adj_bits: torch.Tensor, n: int, valid: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
@@ -73,18 +164,13 @@ def core_numbers_from_bits(
     """
     bsz = adj_bits.shape[0]
     dev = adj_bits.device
-    active = (
-        torch.ones((bsz, n), dtype=torch.bool, device=dev)
-        if valid is None else valid.to(torch.bool).clone()
-    )
+    active = _initial_active(bsz, n, valid, dev)
     core = torch.full((bsz, n), -1, dtype=torch.int32, device=dev)
     k = torch.zeros((bsz, 1), dtype=torch.int32, device=dev)
     big = torch.tensor(n + 1, dtype=torch.int32, device=dev)
     while bool(active.any()):  # the round's one host sync
         running = active.any(dim=-1, keepdim=True)
-        act_bits = pack_bits_u32(active)  # (B, W)
-        live = adj_bits & act_bits[..., :, None]
-        deg = torch.sum(popcount32(live), dim=-2, dtype=torch.int32)  # (B, N)
+        deg = active_degrees(adj_bits, active)  # (B, N)
         mind = torch.where(active, deg, big).amin(dim=-1, keepdim=True)
         k = torch.where(running, torch.maximum(k, mind), k)
         remove = active & (deg <= k)

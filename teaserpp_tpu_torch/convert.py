@@ -12,6 +12,9 @@ import dataclasses
 import enum
 from typing import Any
 
+import numpy as np
+import torch
+
 from teaserpp_tpu_torch import params as _params
 
 
@@ -33,6 +36,25 @@ def params_from_jax(p: Any):
     return cls(**kwargs)
 
 
+def _to_numpy(v):
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
 def solution_to_numpy(sol):
     """Return ``sol`` (a NamedTuple of tensors) with every field as a numpy array."""
-    return type(sol)(*[v.detach().cpu().numpy() for v in sol])
+    return type(sol)(*[_to_numpy(v) for v in sol])
+
+
+def large_result_to_numpy(res):
+    """Return a ``LargeSolveResult`` of either package with numpy fields.
+
+    ``res`` has the fields ``solution`` (a NamedTuple of arrays), ``max_core``
+    and ``clique_size``; tensors and JAX arrays alike become numpy arrays, in
+    the same NamedTuple types, so results of the two packages compare field
+    by field.
+    """
+    return type(res)(
+        solution=solution_to_numpy(res.solution),
+        max_core=_to_numpy(res.max_core),
+        clique_size=_to_numpy(res.clique_size),
+    )

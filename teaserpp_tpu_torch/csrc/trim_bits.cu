@@ -24,28 +24,18 @@
 //    once, and neighbouring threads write neighbouring words (coalesced);
 //  * no tensor cores and no TMA: the work is compare and shift, not a product.
 //
-// Every add, sub and mul goes through __f*_rn so nvcc cannot contract them
-// into FMAs: the words must equal, bit for bit, those of the plain PyTorch
-// version (ops/cuda_kernels.py::trim_adjacency_bits_plain) and of the JAX
-// package, which round after every operation, including at pairs that sit
-// exactly on the threshold.
+// The predicate is trim_pred.cuh's (FMA-free, JAX's op order): the words must
+// equal, bit for bit, those of the plain PyTorch version
+// (ops/cuda_kernels.py::trim_adjacency_bits_plain) and of the JAX package.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "trim_pred.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float sq_dist(float ax, float ay, float az,
-                                         float bx, float by, float bz) {
-  const float dx = __fsub_rn(ax, bx);
-  const float dy = __fsub_rn(ay, by);
-  const float dz = __fsub_rn(az, bz);
-  // dx*dx + dy*dy + dz*dz, summed left to right
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
 
 __global__ void __launch_bounds__(kThreads)
 trim_bits_kernel(const float* __restrict__ src, const float* __restrict__ dst,
@@ -83,13 +73,11 @@ trim_bits_kernel(const float* __restrict__ src, const float* __restrict__ dst,
     const float tx = d[j], ty = d[n + j], tz = d[2 * n + j];
 #pragma unroll 8
     for (int r = 0; r < 32; ++r) {
-      const float ds = sq_dist(rows[0][r], rows[1][r], rows[2][r], sx, sy, sz);
-      const float dd = sq_dist(rows[3][r], rows[4][r], rows[5][r], tx, ty, tz);
-      const float sum = __fadd_rn(ds, dd);
-      const float diff = __fsub_rn(ds, dd);
-      const float lhs = __fmul_rn(diff, diff);
-      const float rhs = __fmul_rn(b2, __fsub_rn(__fmul_rn(2.0f, sum), b2));
-      const bool pred = (sum <= b2) | (lhs <= rhs);
+      const float ds =
+          trim::sq_dist(rows[0][r], rows[1][r], rows[2][r], sx, sy, sz);
+      const float dd =
+          trim::sq_dist(rows[3][r], rows[4][r], rows[5][r], tx, ty, tz);
+      const bool pred = trim::pred_sq(ds, dd, b2);
       const bool keep = pred && row_ok[r] && (w * 32 + r != j);
       word |= static_cast<uint32_t>(keep) << r;
     }

@@ -4,6 +4,13 @@ Counterpart of ``teaserpp_tpu/ops/pallas_kernels.py``:
 
 * ``trim_bits`` (``csrc/trim_bits.cu``) replaces
   ``pallas_kernels.py::trim_adjacency_bits_pallas``, batched and masked.
+* ``trim_degrees`` (``csrc/trim_degrees.cu``) replaces
+  ``pallas_kernels.py::trim_degrees_pallas``, batched.
+* ``trim_adjacency_i8`` (``csrc/trim_adjacency.cu``) replaces
+  ``pallas_kernels.py::trim_adjacency_pallas``, batched.
+
+As in the JAX package, only ``trim_bits`` sits on a solver path; the other
+two are public operations of this module.
 
 A wrapper launches its kernel for CUDA tensors and counts the launch in
 :data:`LAUNCHES`; for CPU tensors it runs the plain PyTorch version (and
@@ -22,7 +29,7 @@ from teaserpp_tpu_torch.clique.kcore import pack_bits_u32_rows
 from teaserpp_tpu_torch.ops import _build
 from teaserpp_tpu_torch.ops.tims import _pdist2, trim_pred_sq
 
-LAUNCHES = {"trim_bits": 0}
+LAUNCHES = {"trim_bits": 0, "trim_degrees": 0, "trim_adjacency_i8": 0}
 
 # Pairs per chunk of the plain version: bounds its float intermediates to a
 # few hundred MB whatever the batch and N.
@@ -81,18 +88,48 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
         raise ValueError(f"{name} must be contiguous")
 
 
-def _trim_bits_lib() -> ctypes.CDLL:
-    lib = _build.load_library("trim_bits")
-    fn = lib.trim_bits_launch
+_POINTER, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# argument types of each library's ``<name>_launch``
+_LAUNCH_ARGTYPES = {
+    # src, dst, valid, out, batch, n, b2, stream
+    "trim_bits": [_POINTER, _POINTER, _POINTER, _POINTER, _INT, _INT, _FLOAT, _POINTER],
+    # src, dst, out, batch, n, b2, stream
+    "trim_degrees": [_POINTER, _POINTER, _POINTER, _INT, _INT, _FLOAT, _POINTER],
+    # src, dst, out, batch, n, beta, stream
+    "trim_adjacency": [_POINTER, _POINTER, _POINTER, _INT, _INT, _FLOAT, _POINTER],
+}
+
+
+def _launch(lib_name: str, counter: str, device: torch.device, *args) -> None:
+    """Call ``<lib_name>_launch(*args, stream)`` on ``device``'s current
+    stream, raise on a refused launch, and count the launch."""
+    lib = _build.load_library(lib_name)
+    fn = getattr(lib, f"{lib_name}_launch")
+    err = getattr(lib, f"{lib_name}_error_string")
     if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-        ]
+        fn.argtypes = _LAUNCH_ARGTYPES[lib_name]
         fn.restype = ctypes.c_int
-        lib.trim_bits_error_string.argtypes = [ctypes.c_int]
-        lib.trim_bits_error_string.restype = ctypes.c_char_p
-    return lib
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{counter} launch failed: {err(rc).decode()} ({rc})")
+    LAUNCHES[counter] += 1
+
+
+def _check_points(name: str, src: torch.Tensor, dst: torch.Tensor):
+    """Checks of a wrapper's ``(B, 3, N)`` float32 inputs, on either device
+    -> (B, N)."""
+    if src.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {src.device}")
+    if src.dim() != 3 or src.shape[1] != 3:
+        raise ValueError(f"src must be (B, 3, N), got {tuple(src.shape)}")
+    bsz, _, n = src.shape
+    _check("src", src, torch.float32, (bsz, 3, n), src.device)
+    _check("dst", dst, torch.float32, (bsz, 3, n), src.device)
+    return bsz, n
 
 
 def trim_bits(
@@ -105,32 +142,130 @@ def trim_bits(
     this is :func:`trim_adjacency_bits_plain`; on CUDA the kernel launches on
     the current stream without synchronising.
     """
+    bsz, n = _check_points("trim_bits", src, dst)
+    _check("valid", valid, torch.bool, (bsz, n), src.device)
     if src.device.type == "cpu":
         return trim_adjacency_bits_plain(src, dst, valid, beta)
-    if src.device.type != "cuda":
-        raise ValueError(f"trim_bits runs on cuda or cpu, not {src.device}")
-    if src.dim() != 3 or src.shape[1] != 3:
-        raise ValueError(f"src must be (B, 3, N), got {tuple(src.shape)}")
-    bsz, _, n = src.shape
     words = (n + 31) // 32
-    _check("src", src, torch.float32, (bsz, 3, n), src.device)
-    _check("dst", dst, torch.float32, (bsz, 3, n), src.device)
-    _check("valid", valid, torch.bool, (bsz, n), src.device)
     if words > 65535 or bsz > 65535:
         raise ValueError(f"trim_bits grid limit: B={bsz}, N={n}")
     out = torch.empty((bsz, words, n), dtype=torch.int32, device=src.device)
     if bsz == 0 or n == 0:
         return out
-    lib = _trim_bits_lib()
     b2 = float(np.float32(beta * beta))  # rounded once to f32, as in JAX
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = lib.trim_bits_launch(
-            src.data_ptr(), dst.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            bsz, n, b2, stream,
-        )
-    if rc != 0:
-        msg = lib.trim_bits_error_string(rc).decode()
-        raise RuntimeError(f"trim_bits launch failed: {msg} ({rc})")
-    LAUNCHES["trim_bits"] += 1
+    _launch("trim_bits", "trim_bits", src.device, src.data_ptr(), dst.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), bsz, n, b2)
+    return out
+
+
+def _row_bands(bsz: int, n: int):
+    """(b0, b1, r0, r1) chunks of a (B, N, N) pair grid, each within the plain
+    versions' pair budget: whole problems, or row bands of one problem."""
+    if n * n <= _PLAIN_CHUNK_PAIRS:
+        b_step, r_step = max(1, _PLAIN_CHUNK_PAIRS // max(1, n * n)), n
+    else:
+        b_step, r_step = 1, max(1, _PLAIN_CHUNK_PAIRS // n)
+    for b0 in range(0, bsz, b_step):
+        for r0 in range(0, n, max(1, r_step)):
+            yield b0, min(b0 + b_step, bsz), r0, min(r0 + r_step, n)
+
+
+def trim_degrees_plain(src: torch.Tensor, dst: torch.Tensor, beta: float) -> torch.Tensor:
+    """Plain PyTorch version of the ``trim_degrees`` kernel.
+
+    ``(B, 3, N)`` float32 points -> ``(B, N)`` int32 TRIM-graph degrees:
+    ``deg[p, j]`` counts the ``i != j`` whose pair passes the sqrt-free TRIM
+    predicate. Chunked over the batch, or over row bands at large N.
+    """
+    bsz, _, n = src.shape
+    deg = torch.zeros((bsz, n), dtype=torch.int32, device=src.device)
+    col = torch.arange(n, device=src.device)
+    for b0, b1, r0, r1 in _row_bands(bsz, n):
+        s, d = src[b0:b1], dst[b0:b1]
+        pred = trim_pred_sq(_pdist2(s[..., r0:r1], s), _pdist2(d[..., r0:r1], d), beta)
+        pred &= col[r0:r1, None] != col[None, :]
+        deg[b0:b1] += pred.sum(dim=-2, dtype=torch.int32)
+    return deg
+
+
+def trim_degrees(src: torch.Tensor, dst: torch.Tensor, beta: float) -> torch.Tensor:
+    """Batched TRIM-graph degrees: the ``trim_degrees`` kernel's wrapper.
+
+    ``src``/``dst`` ``(B, 3, N)`` float32, contiguous on one device; returns
+    ``(B, N)`` int32, equal to the popcount row sums of :func:`trim_bits` with
+    every point valid. On the CPU this is :func:`trim_degrees_plain`; on CUDA
+    the kernel launches on the current stream without synchronising.
+    """
+    bsz, n = _check_points("trim_degrees", src, dst)
+    if src.device.type == "cpu":
+        return trim_degrees_plain(src, dst, beta)
+    if bsz > 65535:
+        raise ValueError(f"trim_degrees grid limit: B={bsz}")
+    out = torch.empty((bsz, n), dtype=torch.int32, device=src.device)
+    if bsz == 0 or n == 0:
+        return out
+    b2 = float(np.float32(beta * beta))  # rounded once to f32, as in JAX
+    _launch("trim_degrees", "trim_degrees", src.device, src.data_ptr(),
+            dst.data_ptr(), out.data_ptr(), bsz, n, b2)
+    return out
+
+
+def _gram_dist(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """(..., 3, R) x (..., 3, C) -> (..., R, C) Gram-form distances:
+    ``sqrt(max(a2 + b2 - 2 (ax bx + ay by + az bz), 0))``, every sum left to
+    right and elementwise, the kernel's order."""
+    def norm2(v):
+        x, y, z = v[..., 0, :], v[..., 1, :], v[..., 2, :]
+        return x * x + y * y + z * z
+
+    gram = (rows[..., 0, :, None] * cols[..., 0, None, :]
+            + rows[..., 1, :, None] * cols[..., 1, None, :]
+            + rows[..., 2, :, None] * cols[..., 2, None, :])
+    d2 = (norm2(rows)[..., :, None] + norm2(cols)[..., None, :]) - 2.0 * gram
+    return torch.sqrt(torch.clamp(d2, min=0.0))
+
+
+def trim_adjacency_i8_plain(src: torch.Tensor, dst: torch.Tensor, beta: float) -> torch.Tensor:
+    """Plain PyTorch version of the ``trim_adjacency_i8`` kernel.
+
+    ``(B, 3, N)`` float32 points -> ``(B, N, N)`` int8: 1 where
+    ``|dist_src - dist_dst| <= beta`` (float32 compare) off the diagonal, the
+    distances in Gram form. Chunked over the batch, or over row bands at
+    large N, so the float fields stay bounded.
+    """
+    bsz, _, n = src.shape
+    out = torch.empty((bsz, n, n), dtype=torch.int8, device=src.device)
+    col = torch.arange(n, device=src.device)
+    beta32 = torch.tensor(beta, dtype=torch.float32, device=src.device)
+    for b0, b1, r0, r1 in _row_bands(bsz, n):
+        s, d = src[b0:b1], dst[b0:b1]
+        ds = _gram_dist(s[..., r0:r1], s)
+        dd = _gram_dist(d[..., r0:r1], d)
+        keep = (ds - dd).abs() <= beta32
+        keep &= col[r0:r1, None] != col[None, :]
+        out[b0:b1, r0:r1] = keep
+    return out
+
+
+def trim_adjacency_i8(src: torch.Tensor, dst: torch.Tensor, beta: float) -> torch.Tensor:
+    """Batched dense int8 TRIM adjacency: the ``trim_adjacency_i8`` kernel's
+    wrapper.
+
+    ``src``/``dst`` ``(B, 3, N)`` float32, contiguous on one device; returns
+    ``(B, N, N)`` int8 with a zero diagonal. Distances are in Gram form, so a
+    pair at the threshold may differ from :func:`ops.tims.trim_adjacency_dense`.
+    On the CPU this is :func:`trim_adjacency_i8_plain`; on CUDA the kernel
+    launches on the current stream without synchronising.
+    """
+    bsz, n = _check_points("trim_adjacency_i8", src, dst)
+    if src.device.type == "cpu":
+        return trim_adjacency_i8_plain(src, dst, beta)
+    if bsz > 65535 or (n + 31) // 32 > 65535:
+        raise ValueError(f"trim_adjacency_i8 grid limit: B={bsz}, N={n}")
+    out = torch.empty((bsz, n, n), dtype=torch.int8, device=src.device)
+    if bsz == 0 or n == 0:
+        return out
+    beta32 = float(np.float32(beta))
+    _launch("trim_adjacency", "trim_adjacency_i8", src.device, src.data_ptr(),
+            dst.data_ptr(), out.data_ptr(), bsz, n, beta32)
     return out

@@ -75,7 +75,8 @@ def _require_top_kcore(params: RobustRegistrationSolverParams) -> None:
         raise NotImplementedError(
             f"inlier selection {mode.name} with kcore_heuristic_threshold="
             f"{params.kcore_heuristic_threshold} is not ported yet, only KCORE_HEU "
-            "at threshold 0 (ROADMAP queue 1, item 5: clique/heuristic.py)"
+            "at threshold 0 (ROADMAP queue 1, item 5: a problem-batched "
+            "clique/heuristic.py inside register_pair)"
         )
 
 

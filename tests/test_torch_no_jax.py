@@ -1,5 +1,6 @@
-"""The port stands alone: no import of JAX or of the JAX package, a CPU
-solve with JAX blocked, and no silent fallback to the CPU."""
+"""The port stands alone: no import of JAX or of the JAX package, CPU solves
+with JAX blocked, its own native clique library, and no silent fallback to
+the CPU."""
 
 import ast
 import pathlib
@@ -10,7 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from teaserpp_tpu_torch import RobustRegistrationSolverParams, solve_batch
+from teaserpp_tpu_torch import (
+    RobustRegistrationSolverParams,
+    solve_batch,
+    solve_large_exact,
+    solve_large_sharded,
+)
 from teaserpp_tpu_torch.device import resolve_device
 
 torch.set_num_threads(1)
@@ -42,7 +48,7 @@ sys.modules["teaserpp_tpu"] = None
 import numpy as np, torch
 torch.set_num_threads(1)
 from teaserpp_tpu_torch import (InlierSelectionMode, RobustRegistrationSolverParams,
-                                solve_batch)
+                                solve_batch, solve_large_exact, solve_large_sharded)
 rng = np.random.default_rng(0)
 src = rng.uniform(0, 0.15, (2, 3, 64))
 dst = src + np.array([0.1, -0.2, 0.05])[:, None] + rng.uniform(-5e-4, 5e-4, src.shape)
@@ -52,18 +58,42 @@ params = RobustRegistrationSolverParams(
     inlier_selection_mode=InlierSelectionMode.KCORE_HEU, kcore_heuristic_threshold=0.0)
 sol = solve_batch(src, dst, params, device="cpu")
 assert np.abs(sol.rotation.numpy() - np.eye(3)).max() < 1e-2
+large = solve_large_sharded(src[0], dst[0], params, subgraph_size=32,
+                            blocked_threshold=16, device="cpu")
+exact = solve_large_exact(src[0], dst[0], params, num_threads=1, device="cpu")
+for res in (large, exact):
+    assert np.abs(res.solution.rotation.numpy() - np.eye(3)).max() < 1e-2
+assert int(exact.clique_size) >= int(large.clique_size)
 assert "jaxlib" not in sys.modules
+
+# the exact search ran in the port's own library: nothing of the JAX package's
+# native directory is mapped into this process
+import pathlib
+from teaserpp_tpu_torch.ops import _build
+mapped = [line.split()[-1] for line in open("/proc/self/maps") if "maxclique" in line]
+assert mapped, "the native clique library is not loaded"
+assert all(pathlib.Path(m).parent == _build.BUILD_DIR for m in mapped), mapped
 print("solved")
 """
 
 
+def _jax_native_dir_state():
+    native = ROOT / "teaserpp_tpu" / "clique" / "native"
+    return {p.name: (p.stat().st_mtime_ns, p.stat().st_size) for p in native.iterdir()}
+
+
 def test_cpu_solve_with_jax_blocked():
+    """Batched, huge-N and exact solves run with JAX and the JAX package
+    unimportable, and the exact search neither loads nor rebuilds the JAX
+    package's ``clique/native/libmaxclique.so``."""
+    before = _jax_native_dir_state()
     proc = subprocess.run(
         [sys.executable, "-c", SOLVE_WITH_JAX_BLOCKED],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("solved")
+    assert _jax_native_dir_state() == before
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -77,4 +107,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
                             kcore_heuristic_threshold=0.0)
     with pytest.raises(RuntimeError, match="CUDA"):
         solve_batch(np.zeros((1, 3, 8)), np.zeros((1, 3, 8)), params, device=None)
+    for solve in (solve_large_sharded, solve_large_exact):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            solve(np.zeros((3, 8)), np.zeros((3, 8)), params, device=None)
     assert resolve_device("cpu") == torch.device("cpu")
