@@ -14,7 +14,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    with its own cloud, a quarter padded), (1, 65536) and (1, 100000);
    ``trim_degrees`` at (512, 1889) and (1, 100000), the second also against
    the popcount sums of ``trim_bits``; ``trim_adjacency_i8`` at (64, 1889) and
-   (1, 16384), with its agreement share with ``trim_adjacency_dense``;
+   (1, 16384), with its agreement share with ``trim_adjacency_dense``. Both
+   tile kernels also run small hard shapes: (7, 333) (for ``trim_bits`` with
+   a scattered validity mask, an empty problem, an empty row block and
+   duplicated points), (3, 1), (2, 33) and (1, 10007), the size of a gathered
+   subset of the exact path. Before each ``trim_bits`` launch the allocator's
+   block of the output's size is filled with a pattern and the output is
+   checked to lie there, so a word that no warp stores shows as a
+   difference. First, the tile kernels' compiled task numbering is read back
+   through the built library and must cover every unordered block once, and
+   a batch beyond the launch's grid must raise;
 4. batched path: ``solve_batch`` on 512 bunny-shaped problems (N=1889, 1700
    outlier draws with replacement, so ~59% outliers; bench.py's parameters)
    with every launch count set to 0 just before and read just after; every
@@ -73,7 +82,10 @@ PARITY_TOL = 1e-4  # Frobenius (rotation) / Euclidean (translation), as the test
 # single add/sub/mul instructions a second
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12 / 2
-TRIM_OPS_PER_PAIR = 22  # 2 x (3 sub, 3 mul, 2 add) + add, sub, 3 mul, sub
+# The TRIM predicate: 2 x (3 sub, 3 mul, 2 add), then add, sub, 2 mul and
+# `2 s - b2`, which is one FMA (doubling is exact, so fusing it rounds as the
+# separate multiply and subtract do): 20 add/sub/mul + 1 exact FMA
+TRIM_OPS_PER_PAIR = 21
 # Gram-form dense adjacency: per cloud 3 mul + 2 add (product), add, mul, sub,
 # max = 9; then one sub and one compare (the abs is an operand modifier)
 GRAM_OPS_PER_PAIR = 2 * 9 + 2
@@ -268,9 +280,30 @@ def _max_abs_diff(got, want) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
-def _compare_and_time(kernel, plain, device, reps: int, plain_reps: int) -> dict:
-    """Run ``kernel()`` and ``plain()`` once, compare them exactly, then time both."""
+def _poison_allocator(device, shape, dtype):
+    """Fill a block of an output's size with a pattern and free it, so a
+    kernel that leaves a word of the next ``torch.empty`` of that size
+    unwritten cannot pass on leftover bytes of an earlier, equal result.
+    Returns the block's address (None on the CPU): the caller checks that
+    the output landed there."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    block = torch.full(shape, 0x5A5A5A5A, dtype=dtype, device=device)
+    torch.cuda.synchronize()
+    return block.data_ptr()
+
+
+def _compare_and_time(kernel, plain, device, reps: int, plain_reps: int,
+                      poison=None) -> dict:
+    """Run ``kernel()`` and ``plain()`` once, compare them exactly, then time
+    both. ``poison`` is the (shape, dtype) of an output the kernel receives
+    uninitialised."""
+    poisoned_at = _poison_allocator(device, *poison) if poison is not None else None
     got = kernel()
+    if poisoned_at is not None and got.numel() and got.data_ptr() != poisoned_at:
+        raise AssertionError("the output did not land on the block filled with the pattern")
     want = plain()
     _sync(device)
     err = _max_abs_diff(got, want)
@@ -282,15 +315,13 @@ def _compare_and_time(kernel, plain, device, reps: int, plain_reps: int) -> dict
     return res
 
 
-def kernel_phase(device, seed: int = 0) -> dict:
-    """Every kernel against its plain version, exactly, at the shapes listed
-    in the module docstring. Returns {kernel name: [one dict per shape]}."""
-    import torch
-    from teaserpp_tpu_torch.clique.kcore import active_degrees
-    from teaserpp_tpu_torch.ops import cuda_kernels as ck
-    from teaserpp_tpu_torch.ops.tims import trim_adjacency_dense, trim_beta
+def kernel_inputs(seed: int = 0) -> dict:
+    """The tile kernels' inputs, {name: (src, dst, valid, beta)} as numpy: the
+    three timed shapes "main" (a quarter padded), "huge" and "large", then
+    the small hard ones."""
+    from teaserpp_tpu_torch.ops.tims import trim_beta
 
-    beta = trim_beta(NOISE_BOUND)
+    beta, large_beta = trim_beta(NOISE_BOUND), trim_beta(LARGE_NOISE_BOUND)
     rng = np.random.default_rng(seed)
     src_main, dst_main = make_problems(BATCH, N_POINTS, seed=seed + 3, shared_cloud=False)
     bsz, _, n = src_main.shape
@@ -299,33 +330,60 @@ def kernel_phase(device, seed: int = 0) -> dict:
         valid[p, rng.integers(n // 2, n):] = False
     huge_src, huge_dst = make_problems(1, HUGE_N, seed=seed + 7)
     large_src, large_dst, *_ = make_large_problem(LARGE_N, seed=seed)
-    large_src, large_dst = large_src[None], large_dst[None]
-    large_beta = trim_beta(LARGE_NOISE_BOUND)
+
+    few_src, few_dst = make_problems(7, 333, seed=seed + 5, shared_cloud=False)
+    few_src[:, :, 10], few_dst[:, :, 10] = few_src[:, :, 3], few_dst[:, :, 3]  # duplicates
+    few_valid = rng.random((7, 333)) < 0.7  # scattered, not a suffix
+    few_valid[1] = False  # an empty problem
+    few_valid[2, 64:96] = False  # an empty row block and column block
+    one_src, one_dst = make_problems(3, 1, seed=seed + 9, shared_cloud=False)
+    two_src, two_dst = make_problems(2, 33, seed=seed + 13, shared_cloud=False)
+    sub_src, sub_dst, *_ = make_large_problem(10007, seed=seed + 11)
+    return {
+        "main": (src_main, dst_main, valid, beta),
+        "huge": (huge_src, huge_dst, np.ones((1, HUGE_N), bool), beta),
+        "large": (large_src[None], large_dst[None], np.ones((1, LARGE_N), bool), large_beta),
+        "scattered": (few_src, few_dst, few_valid, beta),
+        "one_point": (one_src, one_dst, np.ones((3, 1), bool), beta),
+        "two_blocks": (two_src, two_dst, np.ones((2, 33), bool), beta),
+        "gathered_subset": (sub_src[None], sub_dst[None], np.ones((1, 10007), bool), large_beta),
+    }
+
+
+def kernel_phase(device, seed: int = 0) -> dict:
+    """Every kernel against its plain version, exactly, at the shapes listed
+    in the module docstring. Returns {kernel name: [one dict per shape]}."""
+    import torch
+    from teaserpp_tpu_torch.clique.kcore import active_degrees
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+    from teaserpp_tpu_torch.ops.tims import trim_adjacency_dense, trim_beta
+
+    inputs = kernel_inputs(seed)
+    src_main, dst_main = inputs["main"][:2]
+    large_src, large_dst = inputs["large"][:2]
     results = {"trim_bits": [], "trim_degrees": [], "trim_adjacency_i8": []}
 
     def shape_of(s):
         return dict(batch=int(s.shape[0]), n=int(s.shape[-1]))
 
     # trim_bits
-    for s_np, d_np, v_np, bt in [
-        (src_main, dst_main, valid, beta),
-        (huge_src, huge_dst, np.ones((1, HUGE_N), bool), beta),
-        (large_src, large_dst, np.ones((1, large_src.shape[-1]), bool), large_beta),
-    ]:
+    for s_np, d_np, v_np, bt in inputs.values():
         s, d, v = _to(device, s_np, d_np, v_np)
+        out_shape = (s.shape[0], (s.shape[-1] + 31) // 32, s.shape[-1])
         res = _compare_and_time(
             lambda: ck.trim_bits(s, d, v, bt),
-            lambda: ck.trim_adjacency_bits_plain(s, d, v, bt), device, 20, 3)
+            lambda: ck.trim_adjacency_bits_plain(s, d, v, bt), device, 20, 3,
+            poison=(out_shape, torch.int32))
         bound_ms, bound_by, pairs = trim_bits_bound_ms(v_np)
         results["trim_bits"].append(dict(
             **shape_of(s), **res, bound_ms=bound_ms, bound_by=bound_by, bound_pairs=pairs))
         del s, d, v
 
     # trim_degrees: no validity mask, so every point of the main shape counts
-    for s_np, d_np, bt, against_bits in [
-        (src_main, dst_main, beta, False),
-        (large_src, large_dst, large_beta, True),
-    ]:
+    for name, (s_np, d_np, _, bt) in inputs.items():
+        if name == "huge":  # the large shape covers what it would show
+            continue
+        against_bits = name == "large"
         s, d = _to(device, s_np, d_np)
         res = _compare_and_time(
             lambda: ck.trim_degrees(s, d, bt),
@@ -367,6 +425,77 @@ def kernel_phase(device, seed: int = 0) -> dict:
             bound_pairs=pairs, bound_terms_ms=terms))
         del s, d
     return results
+
+
+def schedule_phase() -> dict:
+    """The tile kernels' task numbering, decoded by the compiled
+    ``trim::decode_task`` (``csrc/trim_tile.cuh``) through the host entry of
+    the built ``trim_bits`` library: every unordered 32x32 block of a problem
+    is in exactly one task, for ragged N, and the first and last task of a
+    word row decode right at the largest sizes the launch takes."""
+    import ctypes
+    from teaserpp_tpu_torch.ops import _build
+
+    lib = _build.load_library("trim_bits")
+    lib.trim_bits_task_count.argtypes = [ctypes.c_int]
+    lib.trim_bits_task_count.restype = ctypes.c_longlong
+    lib.trim_bits_decode_tasks.argtypes = [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.trim_bits_decode_tasks.restype = None
+
+    def decode(t0: int, count: int, words: int) -> np.ndarray:
+        out = np.empty((count, 3), np.int32)
+        lib.trim_bits_decode_tasks(t0, count, words, out.ctypes.data)
+        return out
+
+    covered = []
+    for n in (1, 31, 33, 257, N_POINTS, 10007, LARGE_N):
+        words = (n + 31) // 32
+        tasks = int(lib.trim_bits_task_count(words))
+        seen = np.zeros((words, words), np.int32)
+        for row_block, col_block0, active in decode(0, tasks, words):
+            if not (0 <= row_block <= col_block0 and active >= 1
+                    and col_block0 + active <= words):
+                raise AssertionError(f"task outside the triangle at N={n}")
+            seen[row_block, col_block0:col_block0 + active] += 1
+        if not np.array_equal(seen, np.triu(np.ones_like(seen))):
+            raise AssertionError(f"tasks do not cover each unordered block once at N={n}")
+        covered.append(dict(n=n, words=words, tasks=tasks))
+
+    edges = 0
+    for words in (3125, 65535, 370_000):
+        for m in (1, 2, words // 2, words - 1, words):  # the word row of length m
+            first = int(lib.trim_bits_task_count(m - 1))
+            last = int(lib.trim_bits_task_count(m)) - 1
+            (r0, c0, _), (r1, c1, a1) = decode(first, 1, words)[0], decode(last, 1, words)[0]
+            if (r0, c0) != (words - m, words - m) or r1 != words - m or c1 + a1 != words:
+                raise AssertionError(f"task decode wrong at words={words}, row length {m}")
+            edges += 2
+    return dict(covered=covered, row_edges_decoded=edges)
+
+
+def refusal_phase(device) -> dict:
+    """What the tile kernels' launch does not take raises, and counts no
+    launch: a batch beyond the grid's second axis."""
+    import torch
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+
+    bsz = 65536
+    s = torch.zeros(bsz, 3, 1, device=device)
+    v = torch.ones(bsz, 1, dtype=torch.bool, device=device)
+    ck.reset_launches()
+    refused = {}
+    for name, call in (("trim_bits", lambda: ck.trim_bits(s, s, v, 0.01)),
+                       ("trim_degrees", lambda: ck.trim_degrees(s, s, 0.01))):
+        try:
+            call()
+        except RuntimeError as exc:
+            refused[name] = str(exc)
+        else:
+            raise AssertionError(f"{name} took a batch of {bsz}")
+    if any(ck.LAUNCHES.values()):
+        raise AssertionError(f"a refused launch was counted: {ck.LAUNCHES}")
+    return refused
 
 
 def _require_launched(device, launches: dict, path: str, kernels: list) -> None:
@@ -683,6 +812,8 @@ def main() -> int:
                     print(f"ptxas {name}:", line.strip())
 
     device = torch.device("cuda")
+    print(json.dumps({"tile_schedule": schedule_phase()}), flush=True)
+    print(json.dumps({"refused_launches": refusal_phase(device)}), flush=True)
     shapes = kernel_phase(device)
     for name, rows in shapes.items():
         for r in rows:

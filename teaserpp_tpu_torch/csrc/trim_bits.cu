@@ -10,80 +10,68 @@
 //   s = ds + dd, d = ds - dd, ds/dd the squared distances of points i and j
 //   in src/dst (the sqrt-free TRIM predicate of ops/tims.py::trim_pred_sq).
 //
-// What bounds it: about 22 FP32 add/sub/mul per pair plus two compares, and
-// only 4 bytes written per 32 pairs, so the kernel is bound by FP32 ALU
-// issue, not by memory (at B=512, N=1889: 1.8e9 pairs against 232 MB of
-// output words).
+// What bounds it on an H100: instruction issue, per UNORDERED pair of valid
+// points. adj is symmetric bit for bit, so one predicate (21 FP32
+// instructions and two compares) serves the entries (i, j) and (j, i); the
+// output is 4 bytes per 32 entries (1.25 GB at N = 100,000, 0.4 ms at the
+// card's memory rate against 5e9 predicates).
 //
-// Design, for that bound:
-//  * grid (column blocks, ceil(N/32) words, B); 256 threads per block;
-//  * the 32 row points of the block's word (6 floats each) and their valid
-//    flags sit in shared memory and are read as broadcasts;
-//  * each thread owns one column j, keeps its 6 floats in registers, and
-//    loops over the 32 rows, setting bit r of its word; the word is written
-//    once, and neighbouring threads write neighbouring words (coalesced);
-//  * no tensor cores and no TMA: the work is compare and shift, not a product.
+// Design (the tile loop, its schedule and its budget are trim_tile.cuh's):
+//  * grid (ceil(tasks / 8), B), 256 threads; a warp runs one task: word row
+//    I against 4 column blocks J >= I, each unordered 32x32 block once;
+//  * the lane's own words are out[I, 32 J + lane]; the warp's bit transpose
+//    of them is out[J, 32 I + lane]; both are stored as 32 neighbouring
+//    words (coalesced). A diagonal block holds both orientations in one word
+//    and is stored once;
+//  * every word of (B, ceil(N/32), N) is stored by exactly one warp, also
+//    those of padded points and of the ragged last block: the wrapper hands
+//    over uninitialised memory.
 //
-// The predicate is trim_pred.cuh's (FMA-free, JAX's op order): the words must
-// equal, bit for bit, those of the plain PyTorch version
+// The words must equal, bit for bit, those of the plain PyTorch version
 // (ops/cuda_kernels.py::trim_adjacency_bits_plain) and of the JAX package.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
-#include "trim_pred.cuh"
+#include "trim_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(trim::kThreads, trim::kMinBlocks)
 trim_bits_kernel(const float* __restrict__ src, const float* __restrict__ dst,
                  const uint8_t* __restrict__ valid, int32_t* __restrict__ out,
-                 int n, int words, float b2) {
-  __shared__ float rows[6][32];
-  __shared__ int row_ok[32];
+                 int n, int words, long long tasks, float b2) {
+  __shared__ float4 rows[trim::kWarps][64];
 
-  const int w = blockIdx.y;
-  const long long b = blockIdx.z;
-  const float* s = src + b * 3 * n;
-  const float* d = dst + b * 3 * n;
-  const uint8_t* v = valid + b * n;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long t = static_cast<long long>(blockIdx.x) * trim::kWarps + warp;
+  if (t >= tasks) return;  // a whole warp; nothing below waits for it
 
-  if (threadIdx.x < 32) {
-    const int i = w * 32 + threadIdx.x;
-    const bool in = i < n;
-    const int ii = in ? i : 0;
-    rows[0][threadIdx.x] = s[ii];
-    rows[1][threadIdx.x] = s[n + ii];
-    rows[2][threadIdx.x] = s[2 * n + ii];
-    rows[3][threadIdx.x] = d[ii];
-    rows[4][threadIdx.x] = d[n + ii];
-    rows[5][threadIdx.x] = d[2 * n + ii];
-    row_ok[threadIdx.x] = in && v[ii] != 0;
-  }
-  __syncthreads();
+  const long long b = blockIdx.y;
+  const trim::Tile tile =
+      trim::compute_tile(src + b * 3 * n, dst + b * 3 * n, valid + b * n, n,
+                         words, t, b2, rows[warp], lane);
 
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= n) return;
-
-  uint32_t word = 0;
-  if (v[j] != 0) {
-    const float sx = s[j], sy = s[n + j], sz = s[2 * n + j];
-    const float tx = d[j], ty = d[n + j], tz = d[2 * n + j];
-#pragma unroll 8
-    for (int r = 0; r < 32; ++r) {
-      const float ds =
-          trim::sq_dist(rows[0][r], rows[1][r], rows[2][r], sx, sy, sz);
-      const float dd =
-          trim::sq_dist(rows[3][r], rows[4][r], rows[5][r], tx, ty, tz);
-      const bool pred = trim::pred_sq(ds, dd, b2);
-      const bool keep = pred && row_ok[r] && (w * 32 + r != j);
-      word |= static_cast<uint32_t>(keep) << r;
+  int32_t* o = out + b * words * n;
+  const int i = 32 * tile.row_block + lane;
+#pragma unroll
+  for (int c = 0; c < trim::kColBlocks; ++c) {
+    if (c < tile.active) {
+      const int col_block = tile.col_block0 + c;
+      const int j = 32 * col_block + lane;
+      if (j < n) {
+        o[static_cast<long long>(tile.row_block) * n + j] =
+            static_cast<int32_t>(tile.word[c]);
+      }
+      // off the diagonal I < J <= words - 1, so row block I is whole: i < n
+      if (col_block != tile.row_block) {
+        o[static_cast<long long>(col_block) * n + i] =
+            static_cast<int32_t>(tile.mirror[c]);
+      }
     }
   }
-  out[(b * words + w) * static_cast<long long>(n) + j] =
-      static_cast<int32_t>(word);
 }
 
 }  // namespace
@@ -98,14 +86,35 @@ int trim_bits_launch(const float* src, const float* dst, const uint8_t* valid,
                      cudaStream_t stream) {
   if (batch <= 0 || n <= 0) return 0;
   const int words = (n + 31) / 32;
-  const dim3 grid((n + kThreads - 1) / kThreads, words, batch);
-  trim_bits_kernel<<<grid, kThreads, 0, stream>>>(src, dst, valid, out, n,
-                                                  words, b2);
+  const long long tasks = trim::tasks_upto(words);
+  const long long blocks = (tasks + trim::kWarps - 1) / trim::kWarps;
+  if (blocks > INT_MAX || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const dim3 grid(static_cast<unsigned>(blocks), batch);
+  trim_bits_kernel<<<grid, trim::kThreads, 0, stream>>>(src, dst, valid, out, n,
+                                                        words, tasks, b2);
   return static_cast<int>(cudaGetLastError());
 }
 
 const char* trim_bits_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The task numbering that this library's kernel (and trim_degrees.cu's) runs,
+// decoded on the host by the kernel's own trim::decode_task: tasks of a
+// problem of `words` word rows, and tasks t0 .. t0 + count - 1 as
+// out[3 k .. 3 k + 2] = (row block, first column block, column blocks).
+long long trim_bits_task_count(int words) { return trim::tasks_upto(words); }
+
+void trim_bits_decode_tasks(long long t0, int count, int words, int32_t* out) {
+  for (int k = 0; k < count; ++k) {
+    trim::Tile tile;
+    trim::decode_task(t0 + k, words, tile);
+    out[3 * k] = tile.row_block;
+    out[3 * k + 1] = tile.col_block0;
+    out[3 * k + 2] = tile.active;
+  }
 }
 
 }  // extern "C"

@@ -5,86 +5,92 @@
 //
 //   deg[b, j] = #{ i != j : pred_b(i, j) },
 //
-// pred the sqrt-free TRIM predicate of trim_pred.cuh, the same instructions
-// as trim_bits.cu, so deg equals the popcount row sums of that kernel's words
-// on the same inputs with every point valid.
+// pred the sqrt-free TRIM predicate of trim_pred.cuh, run through the tile
+// loop of trim_tile.cuh: the same instructions as trim_bits.cu, so deg equals
+// the popcount row sums of that kernel's words on the same inputs with every
+// point valid.
 //
-// What bounds it: about 22 FP32 add/sub/mul per pair and 4 bytes written per
-// vertex, so the FP32 instruction rate, not memory (at N=100,000: 1e10 ordered pairs against
-// 2.8 MB moved).
+// What bounds it on an H100: instruction issue, per UNORDERED pair. pred is
+// symmetric bit for bit, so one predicate (21 FP32 instructions and two
+// compares) counts toward deg[i] and deg[j]; 4 bytes are written per vertex
+// (at N = 100,000: 5e9 predicates against 2.8 MB moved).
 //
-// Design, for that bound:
-//  * grid (column blocks, B); 256 threads per block;
-//  * each thread owns one vertex j, keeps its 6 floats in registers and its
-//    count in a register; the block walks all row points in tiles of 256,
-//    staged in shared memory (6 floats each) and read as broadcasts;
-//  * one int32 store per thread, coalesced; no atomics, so the sum has one
-//    order and the result is exact whatever the schedule.
+// Design (the tile loop, its schedule and its budget are trim_tile.cuh's):
+//  * grid (ceil(tasks / 8), B), 256 threads; a warp runs one task: the 32
+//    rows of block I against 4 column blocks J >= I, each unordered 32x32
+//    block once, points past N masked as trim_bits.cu masks invalid ones;
+//  * the popcount of a lane's own word is its column's share of the block,
+//    the popcount of the warp's bit transpose is its row's share; a diagonal
+//    block holds every pair in both orientations and counts columns only;
+//  * the shares are added to deg with integer atomicAdd: five a lane a task,
+//    zero shares skipped. The wrapper hands over zeros. Integer adds commute
+//    exactly, so the result is exact and the same from run to run whatever
+//    the order the warps finish in.
 //
-// The TPU kernel accumulates tiles across a sequential grid axis; here that
-// axis is the loop inside the block.
+// The TPU kernel accumulates tiles across a sequential grid axis; blocks run
+// in no order here, and the triangle makes the rows' work unequal, so the
+// sum goes through the atomics instead of a loop over all rows.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
-#include "trim_pred.cuh"
+#include "trim_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(trim::kThreads, trim::kMinBlocks)
 trim_degrees_kernel(const float* __restrict__ src,
-                    const float* __restrict__ dst, int32_t* __restrict__ out,
-                    int n, float b2) {
-  __shared__ float rows[6][kThreads];
+                    const float* __restrict__ dst, int32_t* __restrict__ deg,
+                    int n, int words, long long tasks, float b2) {
+  __shared__ float4 rows[trim::kWarps][64];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long t = static_cast<long long>(blockIdx.x) * trim::kWarps + warp;
+  if (t >= tasks) return;  // a whole warp; nothing below waits for it
 
   const long long b = blockIdx.y;
-  const float* s = src + b * 3 * n;
-  const float* d = dst + b * 3 * n;
+  const trim::Tile tile =
+      trim::compute_tile(src + b * 3 * n, dst + b * 3 * n, nullptr, n, words,
+                         t, b2, rows[warp], lane);
 
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  const int jj = j < n ? j : 0;  // threads past N still stage rows
-  const float sx = s[jj], sy = s[n + jj], sz = s[2 * n + jj];
-  const float tx = d[jj], ty = d[n + jj], tz = d[2 * n + jj];
-
-  int count = 0;
-  for (int r0 = 0; r0 < n; r0 += kThreads) {
-    const int i = r0 + threadIdx.x;
-    const int ii = i < n ? i : 0;
-    __syncthreads();  // the previous tile has been read by every thread
-    rows[0][threadIdx.x] = s[ii];
-    rows[1][threadIdx.x] = s[n + ii];
-    rows[2][threadIdx.x] = s[2 * n + ii];
-    rows[3][threadIdx.x] = d[ii];
-    rows[4][threadIdx.x] = d[n + ii];
-    rows[5][threadIdx.x] = d[2 * n + ii];
-    __syncthreads();
-    const int rows_here = min(kThreads, n - r0);
-#pragma unroll 8
-    for (int r = 0; r < rows_here; ++r) {
-      const float ds =
-          trim::sq_dist(rows[0][r], rows[1][r], rows[2][r], sx, sy, sz);
-      const float dd =
-          trim::sq_dist(rows[3][r], rows[4][r], rows[5][r], tx, ty, tz);
-      count += static_cast<int>(trim::pred_sq(ds, dd, b2) && (r0 + r != j));
+  int32_t* g = deg + b * n;
+  int row_share = 0;
+#pragma unroll
+  for (int c = 0; c < trim::kColBlocks; ++c) {
+    if (c < tile.active) {
+      const int col_block = tile.col_block0 + c;
+      const int j = 32 * col_block + lane;
+      const int col_share = __popc(tile.word[c]);  // 0 for a column past N
+      if (col_share != 0) atomicAdd(g + j, col_share);
+      if (col_block != tile.row_block) row_share += __popc(tile.mirror[c]);
     }
   }
-  if (j < n) out[b * n + j] = count;
+  // a nonzero row share comes from a block off the diagonal, where row
+  // block I is whole
+  if (row_share != 0) atomicAdd(g + 32 * tile.row_block + lane, row_share);
 }
 
 }  // namespace
 
 extern "C" {
 
-// src, dst: (batch, 3, n) float32; out: (batch, n) int32. Launches on
-// `stream` and returns the launch's cudaError_t (0 on success); does not
-// synchronise.
-int trim_degrees_launch(const float* src, const float* dst, int32_t* out,
+// src, dst: (batch, 3, n) float32; deg: (batch, n) int32, zero on entry.
+// Launches on `stream` and returns the launch's cudaError_t (0 on success);
+// does not synchronise.
+int trim_degrees_launch(const float* src, const float* dst, int32_t* deg,
                         int batch, int n, float b2, cudaStream_t stream) {
   if (batch <= 0 || n <= 0) return 0;
-  const dim3 grid((n + kThreads - 1) / kThreads, batch);
-  trim_degrees_kernel<<<grid, kThreads, 0, stream>>>(src, dst, out, n, b2);
+  const int words = (n + 31) / 32;
+  const long long tasks = trim::tasks_upto(words);
+  const long long blocks = (tasks + trim::kWarps - 1) / trim::kWarps;
+  if (blocks > INT_MAX || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const dim3 grid(static_cast<unsigned>(blocks), batch);
+  trim_degrees_kernel<<<grid, trim::kThreads, 0, stream>>>(src, dst, deg, n,
+                                                           words, tasks, b2);
   return static_cast<int>(cudaGetLastError());
 }
 

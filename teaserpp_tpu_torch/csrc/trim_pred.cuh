@@ -1,11 +1,19 @@
 // The TRIM pair predicate shared by the kernels that evaluate it
-// (trim_bits.cu, trim_degrees.cu), so both run the same instructions.
+// (trim_bits.cu, trim_degrees.cu, through the tile loop of trim_tile.cuh), so
+// both run the same instructions.
 //
 // Every add, sub and mul goes through __f*_rn so nvcc cannot contract them
 // into FMAs: the predicate must equal, bit for bit, that of the plain PyTorch
 // versions (ops/tims.py::trim_pred_sq over _pdist2) and of the JAX package,
 // which round after every operation, including at pairs that sit exactly on
-// the threshold.
+// the threshold. The one fused operation, 2 s - b2, is exact to fuse:
+// doubling a float is exact, so the FMA rounds the same real number once
+// that the two operations round.
+//
+// The predicate is symmetric in its two points, bit for bit: (a - b) and
+// (b - a) differ in sign only, their squares are equal, and no sum below
+// mixes the two points' terms in an order that depends on which came first.
+// trim_tile.cuh stands on that.
 
 #pragma once
 
@@ -29,7 +37,7 @@ __device__ __forceinline__ bool pred_sq(float ds, float dd, float b2) {
   const float sum = __fadd_rn(ds, dd);
   const float diff = __fsub_rn(ds, dd);
   const float lhs = __fmul_rn(diff, diff);
-  const float rhs = __fmul_rn(b2, __fsub_rn(__fmul_rn(2.0f, sum), b2));
+  const float rhs = __fmul_rn(b2, __fmaf_rn(2.0f, sum, -b2));  // 2 sum exact
   return (sum <= b2) | (lhs <= rhs);
 }
 

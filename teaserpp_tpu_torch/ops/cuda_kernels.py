@@ -10,7 +10,9 @@ Counterpart of ``teaserpp_tpu/ops/pallas_kernels.py``:
   ``pallas_kernels.py::trim_adjacency_pallas``, batched.
 
 As in the JAX package, only ``trim_bits`` sits on a solver path; the other
-two are public operations of this module.
+two are public operations of this module. ``trim_bits`` and ``trim_degrees``
+evaluate each unordered pair of a problem once, through one tile loop
+(``csrc/trim_tile.cuh``) over the upper triangle of 32x32 blocks of pairs.
 
 A wrapper launches its kernel for CUDA tensors and counts the launch in
 :data:`LAUNCHES`; for CPU tensors it runs the plain PyTorch version (and
@@ -103,7 +105,8 @@ _LAUNCH_ARGTYPES = {
 
 def _launch(lib_name: str, counter: str, device: torch.device, *args) -> None:
     """Call ``<lib_name>_launch(*args, stream)`` on ``device``'s current
-    stream, raise on a refused launch, and count the launch."""
+    stream, raise on a refused launch, and count the launch. The launch
+    functions check their own grid limits and refuse what they do not take."""
     lib = _build.load_library(lib_name)
     fn = getattr(lib, f"{lib_name}_launch")
     err = getattr(lib, f"{lib_name}_error_string")
@@ -140,15 +143,18 @@ def trim_bits(
     ``src``/``dst`` ``(B, 3, N)`` float32 and ``valid`` ``(B, N)`` bool, all
     contiguous on one device; returns ``(B, ceil(N/32), N)`` int32. On the CPU
     this is :func:`trim_adjacency_bits_plain`; on CUDA the kernel launches on
-    the current stream without synchronising.
+    the current stream without synchronising: one warp task per word row and
+    group of column blocks on or right of the diagonal (the schedule is
+    ``csrc/trim_tile.cuh``'s), each unordered 32x32 block of pairs evaluated
+    once and both of its orientations stored, so every word of the
+    uninitialised output is written exactly once. A batch or N beyond the
+    launch's grid limits raises.
     """
     bsz, n = _check_points("trim_bits", src, dst)
     _check("valid", valid, torch.bool, (bsz, n), src.device)
     if src.device.type == "cpu":
         return trim_adjacency_bits_plain(src, dst, valid, beta)
     words = (n + 31) // 32
-    if words > 65535 or bsz > 65535:
-        raise ValueError(f"trim_bits grid limit: B={bsz}, N={n}")
     out = torch.empty((bsz, words, n), dtype=torch.int32, device=src.device)
     if bsz == 0 or n == 0:
         return out
@@ -194,14 +200,15 @@ def trim_degrees(src: torch.Tensor, dst: torch.Tensor, beta: float) -> torch.Ten
     ``src``/``dst`` ``(B, 3, N)`` float32, contiguous on one device; returns
     ``(B, N)`` int32, equal to the popcount row sums of :func:`trim_bits` with
     every point valid. On the CPU this is :func:`trim_degrees_plain`; on CUDA
-    the kernel launches on the current stream without synchronising.
+    the kernel launches on the current stream without synchronising, on the
+    grid of :func:`trim_bits`: each unordered pair is evaluated once and
+    counted toward both of its vertices with integer atomic adds into a
+    zeroed output, which is exact whatever order they land in.
     """
     bsz, n = _check_points("trim_degrees", src, dst)
     if src.device.type == "cpu":
         return trim_degrees_plain(src, dst, beta)
-    if bsz > 65535:
-        raise ValueError(f"trim_degrees grid limit: B={bsz}")
-    out = torch.empty((bsz, n), dtype=torch.int32, device=src.device)
+    out = torch.zeros((bsz, n), dtype=torch.int32, device=src.device)  # the kernel adds
     if bsz == 0 or n == 0:
         return out
     b2 = float(np.float32(beta * beta))  # rounded once to f32, as in JAX
