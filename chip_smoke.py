@@ -14,16 +14,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    with its own cloud, a quarter padded), (1, 65536) and (1, 100000);
    ``trim_degrees`` at (512, 1889) and (1, 100000), the second also against
    the popcount sums of ``trim_bits``; ``trim_adjacency_i8`` at (64, 1889) and
-   (1, 16384), with its agreement share with ``trim_adjacency_dense``. Both
-   tile kernels also run small hard shapes: (7, 333) (for ``trim_bits`` with
+   (1, 16384), with its agreement share with ``trim_adjacency_dense``. All
+   three kernels also run small hard shapes: (7, 333) (for ``trim_bits`` with
    a scattered validity mask, an empty problem, an empty row block and
    duplicated points), (3, 1), (2, 33) and (1, 10007), the size of a gathered
-   subset of the exact path. Before each ``trim_bits`` launch the allocator's
-   block of the output's size is filled with a pattern and the output is
-   checked to lie there, so a word that no warp stores shows as a
-   difference. First, the tile kernels' compiled task numbering is read back
-   through the built library and must cover every unordered block once, and
-   a batch beyond the launch's grid must raise;
+   subset of the exact path; ``trim_adjacency_i8`` also a near-threshold
+   input (2, 1889) (colinear points whose neighbours' true distance
+   difference is exactly beta, so rounding decides them) and (1, 46341),
+   whose 2.15 GB output passes 2^31 bytes. Before each ``trim_bits`` and
+   ``trim_adjacency_i8`` launch the allocator's block of the output's size is
+   filled with a pattern and the output is checked to lie there, so an
+   element that no warp stores shows as a difference. First, the tile
+   kernels' compiled task numbering is read back through the built library
+   and must cover every unordered block once, a batch beyond the
+   launch's grid must raise, and the approximate square root that
+   ``trim_adjacency_i8`` filters with must keep its error bound over every
+   finite float (checked exhaustively on the card);
 4. batched path: ``solve_batch`` on 512 bunny-shaped problems (N=1889, 1700
    outlier draws with replacement, so ~59% outliers; bench.py's parameters)
    with every launch count set to 0 just before and read just after; every
@@ -71,6 +77,7 @@ LARGE_OUTLIER_RATIO = 0.9
 LARGE_NOISE_BOUND = 0.01
 DENSE_N = 16384  # the largest N at which the JAX package builds a dense adjacency
 DENSE_BATCH = 64
+WIDE_N = 46341  # the least N whose (N, N) int8 output passes 2^31 bytes
 EXACT_N = LARGE_N  # the exact phase's size; cut it if the host search outgrows the budget
 EXACT_TIME_LIMIT_S = 120.0
 LARGE_PARITY_N = 2000
@@ -86,9 +93,11 @@ FP32_OPS_PER_S = 67e12 / 2
 # `2 s - b2`, which is one FMA (doubling is exact, so fusing it rounds as the
 # separate multiply and subtract do): 20 add/sub/mul + 1 exact FMA
 TRIM_OPS_PER_PAIR = 21
-# Gram-form dense adjacency: per cloud 3 mul + 2 add (product), add, mul, sub,
-# max = 9; then one sub and one compare (the abs is an operand modifier)
-GRAM_OPS_PER_PAIR = 2 * 9 + 2
+# Gram-form dense adjacency: per cloud 3 mul + 2 add (product), add, and
+# `- 2 gram` as one FMA (doubling is exact, so fusing it rounds as the
+# separate multiply and subtract do), max = 8; then one sub and one compare
+# (the abs is an operand modifier)
+GRAM_OPS_PER_PAIR = 2 * 8 + 2
 GRAM_SQRTS_PER_PAIR = 2
 # An SM has 128 FP32 lanes and 16 special-function units (Hopper white
 # paper), so a square root's MUFU instruction runs at 1/8 of the FP32 rate
@@ -290,7 +299,8 @@ def _poison_allocator(device, shape, dtype):
 
     if device.type != "cuda":
         return None
-    block = torch.full(shape, 0x5A5A5A5A, dtype=dtype, device=device)
+    pattern = 0x5A if dtype == torch.int8 else 0x5A5A5A5A
+    block = torch.full(shape, pattern, dtype=dtype, device=device)
     torch.cuda.synchronize()
     return block.data_ptr()
 
@@ -313,6 +323,24 @@ def _compare_and_time(kernel, plain, device, reps: int, plain_reps: int,
     res["ms"] = time_ms(kernel, reps, device)
     res["plain_ms"] = time_ms(plain, plain_reps, device)
     return res
+
+
+def near_threshold_problems(n: int):
+    """Colinear problems on which rounding decides the neighbours: point i at
+    (i h, 0, 0) in ``src`` and (i (h + beta), 0, 0) in ``dst``, so the true
+    distance difference of i and i + 1 is exactly beta; h and beta are exact
+    in binary, but h has 12 significant bits, so the squared norms round and
+    the Gram form's cancellation puts those pairs on both sides of beta.
+    One problem for each of two spacings -> (src, dst (2, 3, n), beta)."""
+    beta = 2.0 ** -8
+    i = np.arange(n, dtype=np.float64)
+    src = np.zeros((2, 3, n), np.float32)
+    dst = np.zeros((2, 3, n), np.float32)
+    for p, h in enumerate(((2 ** 11 + 1) * 2.0 ** -17, (2 ** 9 + 3) * 2.0 ** -15)):
+        src[p, 0], dst[p, 0] = i * h, i * (h + beta)
+        if not (np.array_equal(src[p, 0], i * h) and np.array_equal(dst[p, 0], i * (h + beta))):
+            raise AssertionError("near-threshold coordinates are not exact in float32")
+    return src, dst, beta
 
 
 def kernel_inputs(seed: int = 0) -> dict:
@@ -400,28 +428,41 @@ def kernel_phase(device, seed: int = 0) -> dict:
             **shape_of(s), **res, bound_ms=bound_ms, bound_by=bound_by, bound_pairs=pairs))
         del s, d
 
-    # trim_adjacency_i8
+    # trim_adjacency_i8: the two timed shapes (also against the direct
+    # distances of trim_adjacency_dense), then the hard ones
     dn = min(DENSE_N, large_src.shape[-1])
-    for s_np, d_np, nb in [
-        (src_main[:DENSE_BATCH], dst_main[:DENSE_BATCH], NOISE_BOUND),
-        (large_src[..., :dn], large_dst[..., :dn], LARGE_NOISE_BOUND),
-    ]:
+    near_src, near_dst, near_beta = near_threshold_problems(N_POINTS)
+    wide_src, wide_dst, *_ = make_large_problem(WIDE_N, seed=seed + 17)
+    # (case, src, dst, beta, noise bound of the dense agreement or None)
+    adjacency_cases = [
+        ("main", src_main[:DENSE_BATCH], dst_main[:DENSE_BATCH], trim_beta(NOISE_BOUND),
+         NOISE_BOUND),
+        ("large", large_src[..., :dn], large_dst[..., :dn], trim_beta(LARGE_NOISE_BOUND),
+         LARGE_NOISE_BOUND),
+        *[(name, inputs[name][0], inputs[name][1], inputs[name][3], None) for name in
+          ("one_point", "two_blocks", "scattered", "gathered_subset")],
+        ("near_threshold", near_src, near_dst, near_beta, None),
+        ("wide", wide_src[None], wide_dst[None], trim_beta(LARGE_NOISE_BOUND), None),
+    ]
+    for name, s_np, d_np, bt, nb in adjacency_cases:
         s, d = _to(device, s_np, d_np)
-        bt = trim_beta(nb)
         res = _compare_and_time(
             lambda: ck.trim_adjacency_i8(s, d, bt),
-            lambda: ck.trim_adjacency_i8_plain(s, d, bt), device, 20, 3)
+            lambda: ck.trim_adjacency_i8_plain(s, d, bt), device, 20, 3,
+            poison=((s.shape[0], s.shape[-1], s.shape[-1]), torch.int8))
         got = ck.trim_adjacency_i8(s, d, bt)
-        dense = trim_adjacency_dense(s, d, nb)
-        res["agreement_with_trim_adjacency_dense"] = float(
-            (got.bool() == dense).sum(dtype=torch.float64) / dense.numel())
         res["diagonal_zero"] = not bool(got.diagonal(dim1=-2, dim2=-1).any())
-        del got, dense
-        res["equal"] = (res["equal"] and res["diagonal_zero"]
-                        and res["agreement_with_trim_adjacency_dense"] >= 0.9999)
+        res["equal"] = res["equal"] and res["diagonal_zero"]
+        if nb is not None:
+            dense = trim_adjacency_dense(s, d, nb)
+            res["agreement_with_trim_adjacency_dense"] = float(
+                (got.bool() == dense).sum(dtype=torch.float64) / dense.numel())
+            res["equal"] = res["equal"] and res["agreement_with_trim_adjacency_dense"] >= 0.9999
+            del dense
+        del got
         bound_ms, bound_by, pairs, terms = trim_adjacency_bound_ms(s.shape[0], s.shape[-1])
         results["trim_adjacency_i8"].append(dict(
-            **shape_of(s), **res, bound_ms=bound_ms, bound_by=bound_by,
+            case=name, **shape_of(s), **res, bound_ms=bound_ms, bound_by=bound_by,
             bound_pairs=pairs, bound_terms_ms=terms))
         del s, d
     return results
@@ -476,7 +517,7 @@ def schedule_phase() -> dict:
 
 def refusal_phase(device) -> dict:
     """What the tile kernels' launch does not take raises, and counts no
-    launch: a batch beyond the grid's second axis."""
+    launch: a batch beyond the grid's second axis, for all three."""
     import torch
     from teaserpp_tpu_torch.ops import cuda_kernels as ck
 
@@ -486,7 +527,8 @@ def refusal_phase(device) -> dict:
     ck.reset_launches()
     refused = {}
     for name, call in (("trim_bits", lambda: ck.trim_bits(s, s, v, 0.01)),
-                       ("trim_degrees", lambda: ck.trim_degrees(s, s, 0.01))):
+                       ("trim_degrees", lambda: ck.trim_degrees(s, s, 0.01)),
+                       ("trim_adjacency_i8", lambda: ck.trim_adjacency_i8(s, s, 0.01))):
         try:
             call()
         except RuntimeError as exc:
@@ -496,6 +538,32 @@ def refusal_phase(device) -> dict:
     if any(ck.LAUNCHES.values()):
         raise AssertionError(f"a refused launch was counted: {ck.LAUNCHES}")
     return refused
+
+
+def sqrt_filter_phase(device) -> dict:
+    """The bound that ``trim_adjacency_i8``'s filter stands on
+    (``csrc/trim_tile.cuh``'s GramDistPred): the kernel's approximate square
+    root lies within 2^-21 sqrt(x) + 2^-63 of the IEEE one for every finite
+    float x >= 0, checked over all of them by the library's own check
+    kernel."""
+    import ctypes
+    import torch
+    from teaserpp_tpu_torch.ops import _build
+
+    fn = _build.load_library("trim_adjacency").trim_adjacency_sqrt_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(2, dtype=torch.int64, device=device)
+    t0 = time.perf_counter()
+    if fn(out.data_ptr(), torch.cuda.current_stream(device).cuda_stream) != 0:
+        raise RuntimeError("the square-root check did not launch")
+    torch.cuda.synchronize()
+    outside, worst = (int(v) for v in out.cpu())
+    res = dict(inputs=0x7F800000, outside_bound=outside, max_ulps_normal_inputs=worst,
+               seconds=time.perf_counter() - t0)
+    if outside:
+        raise AssertionError(f"the approximate square root leaves its bound: {res}")
+    return res
 
 
 def _require_launched(device, launches: dict, path: str, kernels: list) -> None:
@@ -814,6 +882,7 @@ def main() -> int:
     device = torch.device("cuda")
     print(json.dumps({"tile_schedule": schedule_phase()}), flush=True)
     print(json.dumps({"refused_launches": refusal_phase(device)}), flush=True)
+    print(json.dumps({"sqrt_filter_check": sqrt_filter_phase(device)}), flush=True)
     shapes = kernel_phase(device)
     for name, rows in shapes.items():
         for r in rows:

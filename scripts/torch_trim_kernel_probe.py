@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""What the compiler made of the port's two tile kernels, ``trim_bits`` and
-``trim_degrees``.
+"""What the compiler made of the port's three tile kernels, ``trim_bits``,
+``trim_degrees`` and ``trim_adjacency``.
 
     python3 scripts/torch_trim_kernel_probe.py
 
-Builds ``csrc/trim_bits.cu`` and ``csrc/trim_degrees.cu`` as the package does
-and prints, one JSON line per library:
+Builds ``csrc/trim_bits.cu``, ``csrc/trim_degrees.cu`` and
+``csrc/trim_adjacency.cu`` as the package does and prints, one JSON line per
+library:
 
 * what ptxas reports (registers, shared memory, spills);
 * from ``cuobjdump -sass``, for each kernel, its instruction count and every
-  loop (a backward branch and its target) with its instructions by opcode. A
-  pass of the tile loop evaluates ``FMUL / 8`` pairs a lane (the predicate
-  has 8 multiplies beside its one fused multiply-add), which gives
-  instructions per unordered pair.
+  loop (a backward branch and its target) with its instructions by opcode,
+  and from those the pairs a lane evaluates in one pass of the loop, which
+  give instructions per unordered pair. The pairs are counted by an opcode
+  that the pair function issues a fixed number of times:
+  - ``trim_bits``, ``trim_degrees``: ``FMUL / 8`` (the sqrt-free predicate
+    has 8 multiplies beside its one fused multiply-add);
+  - ``trim_adjacency``: ``MUFU / 2`` (each of the two Gram-form distances
+    takes one square root, one special-function instruction; its multiplies
+    are no fixed count, since the square root issues some of its own).
 
 Needs ``nvcc`` and ``cuobjdump`` (no card); exits non-zero without them. The
 kernels' times and exact checks are ``chip_smoke.py``'s.
@@ -33,11 +39,19 @@ sys.path.insert(0, str(ROOT))
 
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)([.\w]*)\s*(.*?);")
 
+# library -> (opcode, its count per pair) that counts the pairs of a loop
+PAIR_MARKERS = {
+    "trim_bits": ("FMUL", 8),
+    "trim_degrees": ("FMUL", 8),
+    "trim_adjacency": ("MUFU", 2),
+}
 
-def sass_loops(tool: str, so: Path) -> dict:
+
+def sass_loops(tool: str, so: Path, marker: tuple) -> dict:
     """{kernel: {"instructions": n, "loops": [{"length", "opcodes", ...}]}}."""
     text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
                           check=True).stdout
+    opcode, per_pair = marker
     out = {}
     for chunk in text.split("Function : ")[1:]:
         instrs = [(int(m.group(1), 16), m.group(2), m.group(4))
@@ -49,9 +63,10 @@ def sass_loops(tool: str, so: Path) -> dict:
                 ops = collections.Counter(
                     o for a, o, _ in instrs if int(target.group(1), 16) <= a <= addr)
                 length = sum(ops.values())
-                pairs = ops["FMUL"] / 8
+                pairs = ops[opcode] / per_pair
                 loops.append(dict(
                     length=length, opcodes=dict(ops.most_common()), pairs_a_lane=pairs,
+                    pairs_counted_by=f"{opcode} / {per_pair}",
                     instructions_a_pair=length / pairs if pairs else None))
         out[chunk.split()[0]] = dict(instructions=len(instrs), loops=loops)
     return out
@@ -64,11 +79,11 @@ def main() -> int:
     if not Path(tool).exists():
         print("torch_trim_kernel_probe: cuobjdump not found", file=sys.stderr)
         return 1
-    for name in ("trim_bits", "trim_degrees"):
+    for name, marker in PAIR_MARKERS.items():
         so = _build.build(name)
         log = Path(str(so) + ".log").read_text()
         ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(json.dumps(dict(library=name, ptxas=ptxas, sass=sass_loops(tool, so))),
+        print(json.dumps(dict(library=name, ptxas=ptxas, sass=sass_loops(tool, so, marker))),
               flush=True)
     return 0
 

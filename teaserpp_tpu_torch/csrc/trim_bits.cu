@@ -52,7 +52,7 @@ trim_bits_kernel(const float* __restrict__ src, const float* __restrict__ dst,
   const long long b = blockIdx.y;
   const trim::Tile tile =
       trim::compute_tile(src + b * 3 * n, dst + b * 3 * n, valid + b * n, n,
-                         words, t, b2, rows[warp], lane);
+                         words, t, trim::SqDistPred{b2}, rows[warp], lane);
 
   int32_t* o = out + b * words * n;
   const int i = 32 * tile.row_block + lane;

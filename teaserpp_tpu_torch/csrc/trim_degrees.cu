@@ -53,7 +53,7 @@ trim_degrees_kernel(const float* __restrict__ src,
   const long long b = blockIdx.y;
   const trim::Tile tile =
       trim::compute_tile(src + b * 3 * n, dst + b * 3 * n, nullptr, n, words,
-                         t, b2, rows[warp], lane);
+                         t, trim::SqDistPred{b2}, rows[warp], lane);
 
   int32_t* g = deg + b * n;
   int row_share = 0;

@@ -10,9 +10,10 @@ Counterpart of ``teaserpp_tpu/ops/pallas_kernels.py``:
   ``pallas_kernels.py::trim_adjacency_pallas``, batched.
 
 As in the JAX package, only ``trim_bits`` sits on a solver path; the other
-two are public operations of this module. ``trim_bits`` and ``trim_degrees``
-evaluate each unordered pair of a problem once, through one tile loop
-(``csrc/trim_tile.cuh``) over the upper triangle of 32x32 blocks of pairs.
+two are public operations of this module. All three kernels evaluate each
+unordered pair of a problem once, through one tile loop
+(``csrc/trim_tile.cuh``) over the upper triangle of 32x32 blocks of pairs,
+and use the result for both orientations.
 
 A wrapper launches its kernel for CUDA tensors and counts the launch in
 :data:`LAUNCHES`; for CPU tensors it runs the plain PyTorch version (and
@@ -262,13 +263,15 @@ def trim_adjacency_i8(src: torch.Tensor, dst: torch.Tensor, beta: float) -> torc
     ``(B, N, N)`` int8 with a zero diagonal. Distances are in Gram form, so a
     pair at the threshold may differ from :func:`ops.tims.trim_adjacency_dense`.
     On the CPU this is :func:`trim_adjacency_i8_plain`; on CUDA the kernel
-    launches on the current stream without synchronising.
+    launches on the current stream without synchronising, on the grid of
+    :func:`trim_bits`: each unordered 32x32 block of pairs is evaluated once
+    and stored in both orientations, so every byte of the uninitialised
+    output is written exactly once. A batch or N beyond the launch's grid
+    limits raises.
     """
     bsz, n = _check_points("trim_adjacency_i8", src, dst)
     if src.device.type == "cpu":
         return trim_adjacency_i8_plain(src, dst, beta)
-    if bsz > 65535 or (n + 31) // 32 > 65535:
-        raise ValueError(f"trim_adjacency_i8 grid limit: B={bsz}, N={n}")
     out = torch.empty((bsz, n, n), dtype=torch.int8, device=src.device)
     if bsz == 0 or n == 0:
         return out
