@@ -50,11 +50,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    path);
 9. large-path parity: the port on the CPU at N=2,000 against the card's run,
    both branches: equal ``max_core``, candidate order and clique mask,
-   rotation and translation within 1e-4.
+   rotation and translation within 1e-4;
+10. facade, the headline demo: ``RobustRegistrationSolver.solve`` on one
+    bunny-shaped problem of phase 4's recipe (known scale, PMC_EXACT,
+    GNC-TLS, cost threshold 0.005; examples/bunny_registration.py), gated on
+    <0.1 deg and <0.01 m and a clique no smaller than the JAX facade's on
+    the same problem (``scripts/jax_scale_reference.py``: 767); prints
+    seconds per solve and ``getStageTimings()``;
+11. facade, the library's defaults: the same problem with ``dst = 1.4 R src
+    + t``, unknown scale and PMC_EXACT; the same gate and |s - 1.4| < 1e-3;
+12. batched unknown scale: ``solve_batch`` with ``estimate_scaling=True``
+    and KCORE_HEU at threshold 0 on scripts/bench_scale_est.py's problems
+    at its defaults (B=64, N=500, 70% outliers, s in [0.5, 2], noise bound
+    0.01); every problem within |ds| < 1e-3, 0.01 rad and 0.02 translation
+    error (tests/test_registration_e2e.py's gate); prints registrations/s,
+    stage times and peak memory;
+13. their CPU/GPU parity: the facade on a problem of N=300 with unknown
+    scale (equal clique, R and t within 1e-4, s within 1e-5) and 4 problems
+    of phase 12 (equal clique and scale-pair masks, s within 1e-5, R and t
+    within 1e-4).
 
-Then one ``{"kernels": [...]}`` line and, last, the device line. Without
-CUDA, or without the package beside it, it exits non-zero and prints no
-result.
+Phases 10-12 run no TRIM kernel (as in the JAX package, their route reaches
+no Pallas kernel): each sets the launch counts to 0 before and requires them
+to read 0 after. Then one ``{"kernels": [...]}`` line and, last, the device
+line. Without CUDA, or without the package beside it, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -83,6 +103,15 @@ EXACT_TIME_LIMIT_S = 120.0
 LARGE_PARITY_N = 2000
 PARITY_PROBLEMS = 4
 PARITY_TOL = 1e-4  # Frobenius (rotation) / Euclidean (translation), as the tests state
+FACADE_SCALE = 1.4  # the defaults phase's scale (tests/test_registration_e2e.py's)
+# The JAX facade's clique on the facade phases' problem, float32 and float64
+# alike (scripts/jax_scale_reference.py on the CPU): the clique gate's floor
+JAX_FACADE_CLIQUE = 767
+FACADE_PARITY_N = 300
+SCALE_BATCH = 64  # scripts/bench_scale_est.py's defaults
+SCALE_N = 500
+SCALE_NOISE_BOUND = 0.01
+SCALE_PARITY_TOL = 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s HBM3; 67 TFLOP/s float32
 # outside the tensor cores, counting an FMA as two operations, so 33.5e12
@@ -117,19 +146,21 @@ _u, _s, _vt = np.linalg.svd(T[:3, :3])
 T[:3, :3] = _u @ _vt
 
 
-def make_problems(batch: int, n: int, seed: int = 0, shared_cloud: bool = True):
+def make_problems(batch: int, n: int, seed: int = 0, shared_cloud: bool = True,
+                  scale: float = 1.0):
     """Bunny-shaped problems: one fixed cloud in a 0.15 m box (or, with
-    ``shared_cloud`` False, one per problem), transformed by ``T``, uniform
-    noise +-nb/2, and 1700 outlier draws shifting all three axes of the drawn
-    points by one integer in [5, 10] (the example's recipe). The draws are
-    with replacement, so at N=1889 about 1121 points (59%) are outliers."""
+    ``shared_cloud`` False, one per problem), transformed by ``scale`` and
+    ``T``, uniform noise +-nb/2, and 1700 outlier draws shifting all three
+    axes of the drawn points by one integer in [5, 10] (the example's
+    recipe). The draws are with replacement, so at N=1889 about 1121 points
+    (59%) are outliers."""
     cloud = np.random.default_rng(seed).uniform(0.0, 0.15, (3, n))
     srcs, dsts = [], []
     for p in range(batch):
         rng = np.random.default_rng(seed + 1 + p)
         if not shared_cloud:
             cloud = rng.uniform(0.0, 0.15, (3, n))
-        tgt = T[:3, :3] @ cloud + T[:3, 3:4]
+        tgt = scale * (T[:3, :3] @ cloud) + T[:3, 3:4]
         tgt = tgt + rng.uniform(-NOISE_BOUND / 2, NOISE_BOUND / 2, size=tgt.shape)
         mask = np.zeros(n, bool)
         mask[rng.integers(0, n, size=min(N_OUTLIER_DRAWS, n))] = True
@@ -137,6 +168,34 @@ def make_problems(batch: int, n: int, seed: int = 0, shared_cloud: bool = True):
         srcs.append(cloud)
         dsts.append(tgt)
     return np.stack(srcs).astype(np.float32), np.stack(dsts).astype(np.float32)
+
+
+def make_scale_problems(batch: int, n: int, seed: int = 0):
+    """scripts/bench_scale_est.py's problems: cloud uniform in [-1, 1]^3, a
+    uniform random rotation, s uniform in [0.5, 2], t normal with sd 0.5,
+    uniform noise +-nb/2, 70% of ``dst`` replaced by uniform [-4, 4]^3.
+    Returns (src, dst (B, 3, n) float32, s (B,), R (B, 3, 3), t (B, 3))."""
+    rng = np.random.default_rng(seed)
+    srcs, dsts, rs, ss, ts = [], [], [], [], []
+    for _ in range(batch):
+        src = rng.uniform(-1, 1, size=(3, n))
+        q, r_ = np.linalg.qr(rng.normal(size=(3, 3)))
+        q *= np.sign(np.diag(r_))
+        if np.linalg.det(q) < 0:
+            q[:, 0] = -q[:, 0]
+        s = rng.uniform(0.5, 2.0)
+        t = rng.normal(size=3) * 0.5
+        dst = s * q @ src + t[:, None]
+        dst += rng.uniform(-SCALE_NOISE_BOUND / 2, SCALE_NOISE_BOUND / 2, size=dst.shape)
+        out = rng.choice(n, size=int(0.7 * n), replace=False)
+        dst[:, out] = rng.uniform(-4, 4, size=(3, out.size))
+        srcs.append(src)
+        dsts.append(dst)
+        rs.append(q)
+        ss.append(s)
+        ts.append(t)
+    return (np.stack(srcs).astype(np.float32), np.stack(dsts).astype(np.float32),
+            np.array(ss), np.stack(rs), np.stack(ts))
 
 
 def make_large_problem(n: int, seed: int = 0):
@@ -186,6 +245,28 @@ def bench_params():
         cbar2=1.0,
         estimate_scaling=False,
         rotation_cost_threshold=0.005,
+        inlier_selection_mode=InlierSelectionMode.KCORE_HEU,
+        kcore_heuristic_threshold=0.0,
+    )
+
+
+def facade_param_fields(estimate_scaling: bool) -> dict:
+    """The facade phases' parameters as field values (either package's
+    ``RobustRegistrationSolverParams`` takes them): examples/
+    bunny_registration.py's, PMC_EXACT, and the scale estimated or not."""
+    return dict(noise_bound=NOISE_BOUND, cbar2=1.0, estimate_scaling=estimate_scaling,
+                rotation_cost_threshold=0.005)
+
+
+def scale_params():
+    from teaserpp_tpu_torch.params import (
+        InlierSelectionMode,
+        RobustRegistrationSolverParams,
+    )
+
+    return RobustRegistrationSolverParams(
+        noise_bound=SCALE_NOISE_BOUND,
+        estimate_scaling=True,
         inlier_selection_mode=InlierSelectionMode.KCORE_HEU,
         kcore_heuristic_threshold=0.0,
     )
@@ -850,6 +931,169 @@ def large_parity_phase(device, n: int):
     return out
 
 
+def _require_no_launch(launches: dict, path: str) -> None:
+    """The facade and unknown-scale routes reach no TRIM kernel, as in the
+    JAX package: a launch there means the route changed."""
+    if any(launches.values()):
+        raise AssertionError(f"{path} launched a TRIM kernel: {launches}")
+
+
+def facade_phase(device, scale: float, repeats: int = 3) -> dict:
+    """``RobustRegistrationSolver.solve`` on one bunny-shaped problem at
+    N=1889, PMC_EXACT; the scale estimated when ``scale`` is not 1."""
+    from teaserpp_tpu_torch import RobustRegistrationSolver, RobustRegistrationSolverParams
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+    from teaserpp_tpu_torch.utils.metrics import rotation_error_deg, translation_error
+
+    src, dst = make_problems(1, N_POINTS, scale=scale)
+    params = RobustRegistrationSolverParams(**facade_param_fields(scale != 1.0))
+    solver = RobustRegistrationSolver(params, device=device)
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    sol = solver.solve(src[0], dst[0])
+    first_s = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    _require_no_launch(launches, "RobustRegistrationSolver.solve")
+
+    out = dict(
+        n=N_POINTS, estimate_scaling=params.estimate_scaling, true_scale=scale,
+        valid=bool(sol.valid), scale=float(sol.scale),
+        scale_err=abs(float(sol.scale) - scale),
+        rot_err_deg=rotation_error_deg(sol.rotation, T[:3, :3]),
+        trans_err_m=translation_error(sol.translation, T[:3, 3]),
+        clique_size=len(solver.getInlierMaxClique()),
+        jax_facade_clique_size=JAX_FACADE_CLIQUE,
+        scale_inlier_pairs=int(solver.getScaleInliersMask().sum()),
+        rotation_cost=solver.getGNCRotationCostAtTermination(),
+        first_call_s=first_s, launches=launches,
+    )
+    finite = np.isfinite(sol.rotation).all() and np.isfinite(sol.translation).all()
+    if not (finite and sol.rotation.shape == (3, 3) and sol.translation.shape == (3,)
+            and out["valid"] and out["rot_err_deg"] < 0.1 and out["trans_err_m"] < 0.01
+            and out["scale_err"] < 1e-3 and out["clique_size"] >= JAX_FACADE_CLIQUE):
+        raise AssertionError(f"facade gate failed: {out}")
+
+    times, stages = [], []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        solver.solve(src[0], dst[0])
+        times.append(time.perf_counter() - t0)
+        stages.append({k: v * 1e3 for k, v in solver.getStageTimings().items()})
+    return dict(out, seconds_per_solve=statistics.median(times), seconds_all=times,
+                stage_ms_all=stages)
+
+
+def scale_batch_phase(device, problems, repeats: int = 3):
+    """``solve_batch`` with unknown scale on bench_scale_est.py's problems,
+    every problem inside tests/test_registration_e2e.py's gate."""
+    import torch
+    from teaserpp_tpu_torch import solve_batch
+    from teaserpp_tpu_torch.convert import solution_to_numpy
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+    from teaserpp_tpu_torch.utils.metrics import angular_error, translation_error
+
+    src, dst, s_true, r_true, t_true = problems
+    params = scale_params()
+    src_d, dst_d = _to(device, src, dst)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+        base_bytes = torch.cuda.memory_allocated(device)
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    sol = solve_batch(src_d, dst_d, params, device=device)
+    _sync(device)
+    first_s = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    _require_no_launch(launches, "solve_batch with estimate_scaling")
+    peak_gb = ((torch.cuda.max_memory_allocated(device) - base_bytes) / 1e9
+               if on_card else None)
+
+    sol_np = solution_to_numpy(sol)
+    bsz = src.shape[0]
+    if not (np.isfinite(sol_np.rotation).all() and np.isfinite(sol_np.translation).all()
+            and np.isfinite(sol_np.scale).all()):
+        raise AssertionError("non-finite solution")
+    s_err = np.abs(sol_np.scale - s_true)
+    r_err = np.array([angular_error(sol_np.rotation[p], r_true[p]) for p in range(bsz)])
+    t_err = np.array([translation_error(sol_np.translation[p], t_true[p]) for p in range(bsz)])
+    gate = dict(scale_err_max=float(s_err.max()), rot_err_rad_max=float(r_err.max()),
+                trans_err_max=float(t_err.max()), invalid=int((~sol_np.valid).sum()))
+    if not ((s_err < 1e-3).all() and (r_err < 0.01).all() and (t_err < 0.02).all()
+            and sol_np.valid.all()):
+        raise AssertionError(f"unknown-scale batch gate failed: {gate}")
+
+    windows = []
+    for _ in range(3):
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            solve_batch(src_d, dst_d, params, device=device)
+        _sync(device)
+        windows.append(time.perf_counter() - t0)
+    seconds_per_batch = min(windows) / repeats
+    stage_ms = {}
+    solve_batch(src_d, dst_d, params, device=device, stage_ms=stage_ms)
+    return sol_np, dict(
+        batch=bsz, n=int(src.shape[-1]), pairs_per_problem=int(src.shape[-1]) * (int(src.shape[-1]) - 1) // 2,
+        registrations_per_s=bsz / seconds_per_batch, seconds_per_batch=seconds_per_batch,
+        seconds_windows=[w / repeats for w in windows], first_call_s=first_s,
+        stage_ms=stage_ms, launches=launches, peak_gb_above_inputs=peak_gb, **gate,
+        clique_size_min=int(sol_np.clique_mask.sum(-1).min()),
+        clique_size_max=int(sol_np.clique_mask.sum(-1).max()),
+        gnc_iterations_max=int(sol_np.rotation_iterations.max()),
+    )
+
+
+def scale_parity_phase(device, problems, sol_dev) -> dict:
+    """The facade at N=300 with unknown scale, and 4 problems of the
+    unknown-scale batch, on the CPU against the card."""
+    from teaserpp_tpu_torch import RobustRegistrationSolver, RobustRegistrationSolverParams
+    from teaserpp_tpu_torch import solve_batch
+    from teaserpp_tpu_torch.convert import solution_to_numpy
+
+    src, dst = make_problems(1, FACADE_PARITY_N, scale=FACADE_SCALE)
+    params = RobustRegistrationSolverParams(**facade_param_fields(True))
+    res = []
+    for dev in ("cpu", device):
+        solver = RobustRegistrationSolver(params, device=dev)
+        sol = solver.solve(src[0], dst[0])
+        res.append((sol, solver.getInlierMaxClique()))
+    (c_sol, c_clique), (d_sol, d_clique) = res
+    facade = dict(
+        n=FACADE_PARITY_N, cliques_equal=c_clique == d_clique, clique_size=len(d_clique),
+        scale_diff=abs(c_sol.scale - d_sol.scale),
+        rotation_frobenius=float(np.linalg.norm(c_sol.rotation - d_sol.rotation)),
+        translation=float(np.linalg.norm(c_sol.translation - d_sol.translation)),
+    )
+    if not (facade["cliques_equal"] and c_sol.valid and d_sol.valid
+            and facade["scale_diff"] <= SCALE_PARITY_TOL
+            and facade["rotation_frobenius"] <= PARITY_TOL
+            and facade["translation"] <= PARITY_TOL):
+        raise AssertionError(f"CPU/GPU parity of the facade failed: {facade}")
+
+    k = PARITY_PROBLEMS
+    b_src, b_dst = problems[0][:k], problems[1][:k]
+    cpu = solution_to_numpy(solve_batch(b_src, b_dst, scale_params(), device="cpu"))
+    batch = dict(
+        problems=k,
+        clique_masks_equal=bool(np.array_equal(cpu.clique_mask, sol_dev.clique_mask[:k])),
+        scale_pair_masks_equal=bool(np.array_equal(cpu.scale_pair_mask,
+                                                   sol_dev.scale_pair_mask[:k])),
+        scale_diff_max=float(np.abs(cpu.scale - sol_dev.scale[:k]).max()),
+        rotation_frobenius_max=float(max(np.linalg.norm(cpu.rotation[p] - sol_dev.rotation[p])
+                                         for p in range(k))),
+        translation_max=float(max(np.linalg.norm(cpu.translation[p] - sol_dev.translation[p])
+                                  for p in range(k))),
+    )
+    if not (batch["clique_masks_equal"] and batch["scale_pair_masks_equal"]
+            and batch["scale_diff_max"] <= SCALE_PARITY_TOL
+            and batch["rotation_frobenius_max"] <= PARITY_TOL
+            and batch["translation_max"] <= PARITY_TOL):
+        raise AssertionError(f"CPU/GPU parity of the unknown-scale batch failed: {batch}")
+    return dict(facade=facade, batch=batch)
+
+
 def main() -> int:
     import torch
 
@@ -910,10 +1154,22 @@ def main() -> int:
     large_parity = large_parity_phase(device, LARGE_PARITY_N)
     print(json.dumps({"large_parity": large_parity}), flush=True)
 
+    demo = facade_phase(device, 1.0)
+    print(json.dumps({"facade_demo": demo, "card": card}), flush=True)
+    defaults = facade_phase(device, FACADE_SCALE)
+    print(json.dumps({"facade_defaults": defaults, "card": card}), flush=True)
+    scale_problems = make_scale_problems(SCALE_BATCH, SCALE_N)
+    scale_sol, scale_batch = scale_batch_phase(device, scale_problems)
+    print(json.dumps({"unknown_scale_batch": scale_batch, "card": card}), flush=True)
+    scale_parity = scale_parity_phase(device, scale_problems, scale_sol)
+    print(json.dumps({"unknown_scale_parity": scale_parity}), flush=True)
+
     # which shape's numbers stand at the top of each kernel's entry: the one
     # its path gives it
     paths = {"solve_batch": path["launches"], "solve_large_sharded": large["launches"],
-             "solve_large_exact": exact["launches"], "public_kernel_ops": ops["launches"]}
+             "solve_large_exact": exact["launches"], "public_kernel_ops": ops["launches"],
+             "facade_demo": demo["launches"], "facade_defaults": defaults["launches"],
+             "unknown_scale_batch": scale_batch["launches"]}
     entries = [
         ("trim_bits", "teaserpp_tpu_torch/csrc/trim_bits.cu",
          "teaserpp_tpu/ops/pallas_kernels.py:165", 0),
@@ -926,7 +1182,7 @@ def main() -> int:
     for name, source, replaces, main_index in entries:
         rows = shapes[name]
         main_shape = rows[main_index]
-        by_path = {p: counts[name] for p, counts in paths.items() if counts[name]}
+        by_path = {p: counts[name] for p, counts in paths.items()}
         kernels.append(dict(
             name=name,
             route="cuda",

@@ -123,3 +123,31 @@ def svd_rot(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     xw = x * w[..., None, :]
     h = torch.sum(xw[..., :, None, :] * y[..., None, :, :], dim=-1)
     return rotation_from_correlation(h)
+
+
+def svd_rot_2d(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted SO(2) Procrustes on (..., 2, N) inputs (reference utils.h:145-160).
+
+    Closed form: R = [[c, -s], [s, c]] with (c, s) ∝ (h00 + h11, h01 - h10);
+    a correlation whose norm is below ``max(tiny * 1e4, 1e-30)`` of the dtype
+    gives the identity.
+    """
+    xw = x * w[..., None, :]
+    h = torch.sum(xw[..., :, None, :] * y[..., None, :, :], dim=-1)
+    a = h[..., 0, 0] + h[..., 1, 1]
+    b = h[..., 0, 1] - h[..., 1, 0]
+    norm = torch.sqrt(a * a + b * b)
+    degenerate = norm < max(torch.finfo(h.dtype).tiny * 1e4, 1e-30)
+    safe = torch.where(degenerate, torch.ones_like(norm), norm)
+    c = torch.where(degenerate, torch.ones_like(a), a / safe)
+    s = torch.where(degenerate, torch.zeros_like(b), b / safe)
+    return torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
+
+
+def calculate_diameter(x: torch.Tensor) -> torch.Tensor:
+    """Diameter proxy of a point set, 2 x the largest distance from the
+    centroid (reference utils.h:107-112, not the pairwise diameter):
+    (..., D, N) -> (...,)."""
+    p = x - torch.mean(x, dim=-1, keepdim=True)
+    sq = torch.sum(p * p, dim=-2)
+    return 2.0 * torch.sqrt(sq.amax(dim=-1))

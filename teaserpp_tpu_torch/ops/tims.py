@@ -1,17 +1,72 @@
-"""TRIM consistency graph and chain TIMs, batched.
+"""TIMs, TIM norms, the TRIM consistency graph and chain TIMs, batched.
 
 Counterpart of ``teaserpp_tpu/ops/tims.py``. Points are laid out
 ``(..., 3, N)`` as in the JAX package; a batch dimension replaces ``vmap``.
 The TRIM predicate keeps the JAX package's exact op order so the bit words
-are equal word for word on the same float32 inputs.
+are equal word for word on the same float32 inputs. TIM pairs are the
+``K = N(N-1)/2`` upper-triangle pairs in row-major order (reference
+registration.cc:531).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=64)
+def upper_tri_indices(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(i, j) int32 numpy index arrays of the K upper-triangle pairs, i < j,
+    row-major: the pair order of every K-vector (the facade's maps)."""
+    i, j = np.triu_indices(n, k=1)
+    return i.astype(np.int32), j.astype(np.int32)
+
+
+def _pair_index(n: int, device) -> torch.Tensor:
+    """(2, K) int64 pair indices on ``device``, in :func:`upper_tri_indices`' order."""
+    return torch.triu_indices(n, n, offset=1, device=device)
+
+
+def compute_tims(v: torch.Tensor) -> torch.Tensor:
+    """All pairwise differences ``v[..., :, j] - v[..., :, i]`` for i < j:
+    (..., 3, N) -> (..., 3, K), in reference pair order."""
+    i, j = _pair_index(v.shape[-1], v.device)
+    return v[..., :, j] - v[..., :, i]
+
+
+def tim_pair_valid(valid: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
+    """Pair validity for padded point sets: pair (i, j) valid iff both are."""
+    if valid is None:
+        return None
+    i, j = _pair_index(n, valid.device)
+    return valid[..., i] & valid[..., j]
+
+
+def compute_tim_norms(v: torch.Tensor, use_matmul: bool = False) -> torch.Tensor:
+    """Norms of all upper-triangle TIMs, (..., 3, N) -> (..., K).
+
+    The default gathers and subtracts per axis and sums ``dx*dx + dy*dy +
+    dz*dz`` left to right. ``use_matmul=True`` forms the squared distances
+    as ``|vi|^2 + |vj|^2 - 2 vi.vj`` (less accurate at tiny distances) with
+    the depth-3 Gram product as elementwise float sums, so no TF32 setting
+    of the process reaches it.
+    """
+    n = v.shape[-1]
+    i, j = _pair_index(n, v.device)
+    x, y, z = v[..., 0, :], v[..., 1, :], v[..., 2, :]
+    if use_matmul:
+        sq = x * x + y * y + z * z
+        gram = (x[..., :, None] * x[..., None, :] + y[..., :, None] * y[..., None, :]
+                + z[..., :, None] * z[..., None, :])
+        d2 = sq[..., :, None] + sq[..., None, :] - 2.0 * gram
+        d2 = torch.clamp(d2, min=0.0)
+        return torch.sqrt(d2[..., i, j])
+    dx, dy, dz = (a[..., j] - a[..., i] for a in (x, y, z))
+    return torch.sqrt(dx * dx + dy * dy + dz * dz)
 
 
 def trim_pred_sq(d2s: torch.Tensor, d2d: torch.Tensor, beta: float) -> torch.Tensor:

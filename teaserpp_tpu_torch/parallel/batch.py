@@ -54,8 +54,11 @@ def solve_batch(
 ) -> PipelineSolution:
     """Solve a (B, 3, N) problem batch on ``device`` (CUDA unless named).
 
-    Inlier selection must be KCORE_HEU at threshold 0 with known scale, the
-    path ported so far; see :func:`register_pair` for ``stage_ms``.
+    Known or unknown scale (``params.estimate_scaling``), inlier selection
+    NONE or KCORE_HEU at threshold 0, any rotation algorithm; KCORE_HEU above
+    0 and PMC_HEU / PMC_EXACT raise ``NotImplementedError`` (the facade,
+    ``RobustRegistrationSolver``, runs them one problem at a time). See
+    :func:`register_pair` for ``stage_ms``.
     """
     return register_pair(src, dst, params, valid=valid, device=device,
                          stage_ms=stage_ms)

@@ -1,15 +1,19 @@
-"""Batched known-scale registration pipeline.
+"""Batched registration pipeline.
 
-Counterpart of ``teaserpp_tpu/solvers/pipeline.py``, for the branch the
-batched solve takes with known scale and KCORE_HEU at threshold 0
-(pipeline.py:358-365 there):
+Counterpart of ``teaserpp_tpu/solvers/pipeline.py``. ``register_pair`` takes
+one of two branches, as there:
 
-  TRIM adjacency bits (CUDA kernel) -> batch k-core peel -> top-core mask
-  -> chain TIMs -> GNC-TLS rotation (q-method Procrustes) -> TLS translation.
+* known scale with a clique mode (pipeline.py:358-365 there): TRIM
+  adjacency bits (CUDA kernel) -> batch k-core peel -> top-core mask;
+* otherwise (unknown scale, or NONE): TIM norms -> TLS scale or the TRIM
+  pair selector -> pair-mask adjacency -> top-core mask (or every point).
 
-Every function takes a batch dimension where the JAX package used ``vmap``.
-Other inlier-selection modes, scale estimation and the FGR / Quatro rotation
-solvers are not ported yet and raise ``NotImplementedError``.
+Both then run chain TIMs -> GNC-TLS / FGR / Quatro rotation -> TLS
+translation. Every function takes a batch dimension where the JAX package
+used ``vmap``. Inlier selection in a batch is NONE or KCORE_HEU at
+threshold 0; KCORE_HEU above 0 and PMC_HEU / PMC_EXACT need a
+problem-batched greedy clique and raise ``NotImplementedError`` (the facade,
+``solvers/registration.py``, runs every mode one problem at a time).
 """
 
 from __future__ import annotations
@@ -19,17 +23,35 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from teaserpp_tpu_torch.clique.kcore import core_numbers_from_bits
+from teaserpp_tpu_torch.clique.graph import adjacency_from_pair_mask
+from teaserpp_tpu_torch.clique.kcore import core_numbers_from_bits, pack_bits_u32_rows
 from teaserpp_tpu_torch.device import DeviceLike, resolve_device
 from teaserpp_tpu_torch.ops.procrustes import rotate, svd_rot
-from teaserpp_tpu_torch.ops.tims import chain_tims, trim_adjacency_bits
+from teaserpp_tpu_torch.ops.tims import (
+    _pair_index,
+    chain_tims,
+    compute_tim_norms,
+    tim_pair_valid,
+    trim_adjacency_bits,
+)
 from teaserpp_tpu_torch.params import (
     InlierSelectionMode,
     RobustRegistrationSolverParams,
     RotationEstimationAlgorithm,
 )
-from teaserpp_tpu_torch.solvers.rotation import solve_rotation_gnc_tls
+from teaserpp_tpu_torch.solvers.rotation import (
+    RotationResult,
+    solve_rotation_fgr,
+    solve_rotation_gnc_tls,
+    solve_rotation_quatro,
+)
+from teaserpp_tpu_torch.solvers.scale import select_scale_inliers, solve_scale_tls
 from teaserpp_tpu_torch.solvers.translation import solve_translation_tls
+
+
+class ScaleStageResult(NamedTuple):
+    scale: torch.Tensor  # (B,) estimated scale
+    pair_mask: torch.Tensor  # (B, K) bool scale-stage TIM inlier mask
 
 
 class PipelineSolution(NamedTuple):
@@ -39,7 +61,7 @@ class PipelineSolution(NamedTuple):
     scale: torch.Tensor  # (B,)
     rotation: torch.Tensor  # (B, 3, 3)
     translation: torch.Tensor  # (B, 3)
-    scale_pair_mask: torch.Tensor  # (B, 0) bool: empty on the known-scale path
+    scale_pair_mask: torch.Tensor  # (B, K) bool, or (B, 0) on the known-scale bits branch
     clique_mask: torch.Tensor  # (B, N) bool max-clique membership
     rotation_inlier_mask: torch.Tensor  # (B, N) bool per chain-TIM root index
     translation_inlier_mask: torch.Tensor  # (B, N) bool over original measurements
@@ -73,19 +95,54 @@ def _require_top_kcore(params: RobustRegistrationSolverParams) -> None:
     mode = params.resolved_inlier_selection_mode()
     if mode != InlierSelectionMode.KCORE_HEU or params.kcore_heuristic_threshold > 0:
         raise NotImplementedError(
-            f"inlier selection {mode.name} with kcore_heuristic_threshold="
-            f"{params.kcore_heuristic_threshold} is not ported yet, only KCORE_HEU "
-            "at threshold 0 (ROADMAP queue 1, item 5: a problem-batched "
-            "clique/heuristic.py inside register_pair)"
+            f"batched inlier selection {mode.name} with kcore_heuristic_threshold="
+            f"{params.kcore_heuristic_threshold} is not ported yet, only NONE and "
+            "KCORE_HEU at threshold 0 (ROADMAP queue 1, item 5: a problem-batched "
+            "clique/heuristic.py inside register_pair; RobustRegistrationSolver "
+            "runs every mode)"
         )
 
 
-def _require_gnc_tls(params: RobustRegistrationSolverParams) -> None:
-    if params.rotation_estimation_algorithm != RotationEstimationAlgorithm.GNC_TLS:
-        raise NotImplementedError(
-            f"{params.rotation_estimation_algorithm.name} rotation is not ported "
-            "yet (ROADMAP queue 1, item 4: FGR and Quatro in solvers/rotation.py)"
-        )
+def _solve_rotation(
+    src_tims: torch.Tensor,
+    dst_tims: torch.Tensor,
+    noise_bound,
+    params: RobustRegistrationSolverParams,
+    valid: Optional[torch.Tensor] = None,
+) -> RotationResult:
+    """The rotation solver that ``params`` names, on (B, 3, M) TIMs."""
+    solver = {
+        RotationEstimationAlgorithm.GNC_TLS: solve_rotation_gnc_tls,
+        RotationEstimationAlgorithm.FGR: solve_rotation_fgr,
+        RotationEstimationAlgorithm.QUATRO: solve_rotation_quatro,
+    }[params.rotation_estimation_algorithm]
+    return solver(
+        src_tims, dst_tims, noise_bound,
+        gnc_factor=params.rotation_gnc_factor,
+        max_iterations=params.rotation_max_iterations,
+        cost_threshold=params.rotation_cost_threshold,
+        valid=valid,
+    )
+
+
+def scale_stage(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    params: RobustRegistrationSolverParams,
+    valid: Optional[torch.Tensor] = None,
+) -> ScaleStageResult:
+    """TIM norms + TLS scale estimate or known-scale TRIM pair selection.
+
+    Reference flow: computeTIMs (registration.cc:599-600) + solveForScale
+    (registration.cc:603). Only the (B, K) TIM norms are built, never the
+    TIM vectors.
+    """
+    src_norms = compute_tim_norms(src)
+    dst_norms = compute_tim_norms(dst)
+    pv = tim_pair_valid(valid, src.shape[-1])
+    solve = solve_scale_tls if params.estimate_scaling else select_scale_inliers
+    res = solve(src_norms, dst_norms, params.noise_bound, params.cbar2, valid=pv)
+    return ScaleStageResult(scale=res.scale, pair_mask=res.inliers)
 
 
 def device_clique_from_bits(
@@ -105,6 +162,37 @@ def device_clique_from_bits(
     if valid is not None:
         mask = mask & valid
     return mask
+
+
+def device_clique_from_adjacency(
+    adj: torch.Tensor,
+    params: RobustRegistrationSolverParams,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Inlier selection from a dense (B, N, N) bool adjacency -> (B, N) mask:
+    the top k-core of the packed rows (KCORE_HEU at threshold 0)."""
+    return device_clique_from_bits(pack_bits_u32_rows(adj), adj.shape[-1], params, valid)
+
+
+def device_clique_stage(
+    pair_mask: torch.Tensor,
+    n: int,
+    params: RobustRegistrationSolverParams,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Inlier selection from the scale stage's (B, K) pair mask -> (B, N) mask.
+
+    NONE keeps every valid point; KCORE_HEU at threshold 0 scatters the pairs
+    into an adjacency and takes its top k-core (reference
+    registration.cc:609-654).
+    """
+    if params.resolved_inlier_selection_mode() == InlierSelectionMode.NONE:
+        mask = torch.ones((pair_mask.shape[0], n), dtype=torch.bool, device=pair_mask.device)
+        return mask if valid is None else mask & valid
+    adj = adjacency_from_pair_mask(pair_mask, n)
+    if valid is not None:
+        adj = adj & valid[:, None, :] & valid[:, :, None]
+    return device_clique_from_adjacency(adj, params, valid)
 
 
 def _polish_rt(src, dst, scale, rotation, translation, inlier_mask):
@@ -135,7 +223,7 @@ def rotation_translation_stage(
     params: RobustRegistrationSolverParams,
     stage_ms: Optional[Dict[str, float]] = None,
 ) -> PipelineSolution:
-    """Chain-TIM GNC rotation + component-wise TLS translation, batched.
+    """Chain-TIM rotation + component-wise TLS translation, batched.
 
     Reference flow: chain TIM rebuild (registration.cc:657-680), de-scaling
     and rotation noise-bound update (registration.cc:697-704), rotation solve
@@ -150,14 +238,7 @@ def rotation_translation_stage(
     nb_rot = params.noise_bound * 2.0 * inv_s
     clock.mark("chain_tims")
 
-    _require_gnc_tls(params)
-    rot = solve_rotation_gnc_tls(
-        src_ctims, dst_ctims, nb_rot,
-        gnc_factor=params.rotation_gnc_factor,
-        max_iterations=params.rotation_max_iterations,
-        cost_threshold=params.rotation_cost_threshold,
-        valid=tim_valid,
-    )
+    rot = _solve_rotation(src_ctims, dst_ctims, nb_rot, params, tim_valid)
     clock.mark("rotation")
 
     aligned_src = scale[:, None, None] * rotate(rot.rotation, src)
@@ -185,6 +266,53 @@ def rotation_translation_stage(
     )
 
 
+def rotation_translation_complete(
+    src_sel: torch.Tensor,
+    dst_sel: torch.Tensor,
+    point_valid: torch.Tensor,
+    scale: torch.Tensor,
+    params: RobustRegistrationSolverParams,
+) -> PipelineSolution:
+    """COMPLETE-graph rotation + translation on gathered clique points.
+
+    Reference registration.cc:681-694: all M(M-1)/2 TIMs of the (B, 3, M)
+    clique points, padded to M with ``point_valid`` (B, M). The rotation
+    inlier mask is over the pair order, the translation mask over the points.
+    """
+    m = src_sel.shape[-1]
+    i, j = _pair_index(m, src_sel.device)
+    src_tims = src_sel[..., :, j] - src_sel[..., :, i]
+    dst_tims = dst_sel[..., :, j] - dst_sel[..., :, i]
+    pv = tim_pair_valid(point_valid, m)
+    inv_s = 1.0 / scale
+    dst_tims = dst_tims * inv_s[:, None, None]
+    nb_rot = params.noise_bound * 2.0 * inv_s
+    rot = _solve_rotation(src_tims, dst_tims, nb_rot, params, pv)
+
+    aligned_src = scale[:, None, None] * rotate(rot.rotation, src_sel)
+    trans = solve_translation_tls(
+        aligned_src, dst_sel, params.noise_bound, params.cbar2, valid=point_valid
+    )
+    rotation, translation = rot.rotation, trans.translation
+    if params.final_polish:
+        rotation, translation = _polish_rt(
+            src_sel, dst_sel, scale, rotation, translation, trans.inliers & point_valid
+        )
+    return PipelineSolution(
+        valid=point_valid.sum(dim=-1) > 1,
+        scale=scale,
+        rotation=rotation,
+        translation=translation,
+        scale_pair_mask=torch.zeros((src_sel.shape[0], 0), dtype=torch.bool,
+                                    device=src_sel.device),
+        clique_mask=point_valid,
+        rotation_inlier_mask=rot.inliers,
+        translation_inlier_mask=trans.inliers,
+        rotation_cost=rot.cost,
+        rotation_iterations=rot.iterations,
+    )
+
+
 def _to_device(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return torch.as_tensor(x, device=device).to(dtype).contiguous()
 
@@ -197,23 +325,24 @@ def register_pair(
     device: DeviceLike = None,
     stage_ms: Optional[Dict[str, float]] = None,
 ) -> PipelineSolution:
-    """Known-scale solve of a batch of problems (B, 3, N).
+    """Solve a batch of problems (B, 3, N): scale -> clique -> rotation ->
+    translation.
 
     The batch dimension stands where the JAX package ``vmap``s its per-problem
     ``register_pair``; one problem is a batch of one. The inputs (numpy arrays
     or tensors) go to ``device`` — CUDA unless ``device`` names another — as
-    float32; ``valid`` (B, N) masks padded correspondences. Pass a dict as
-    ``stage_ms`` to have the host wall time of each stage (``bits``, ``peel``,
-    ``chain_tims``, ``rotation``, ``translation``) added to it; this
-    synchronises the device after every stage.
+    float32; ``valid`` (B, N) masks padded correspondences. Known scale with
+    KCORE_HEU builds the TRIM adjacency bits directly (the returned
+    ``scale_pair_mask`` is then (B, 0)); unknown scale, or NONE, runs the
+    scale stage over the (B, K) TIM norms and returns its pair mask. Pass a
+    dict as ``stage_ms`` to have the host wall time of each stage (``bits``,
+    ``peel`` or ``scale``, ``clique``; then ``chain_tims``, ``rotation``,
+    ``translation``) added to it; this synchronises the device after every
+    stage.
     """
-    if params.estimate_scaling:
-        raise NotImplementedError(
-            "scale estimation is not ported yet (ROADMAP queue 1, item 4: "
-            "solvers/scale.py and the unknown-scale path)"
-        )
-    _require_top_kcore(params)
-    _require_gnc_tls(params)
+    mode = params.resolved_inlier_selection_mode()
+    if mode != InlierSelectionMode.NONE:
+        _require_top_kcore(params)
     dev = resolve_device(device)
     src = _to_device(src, dev, torch.float32)
     dst = _to_device(dst, dev, torch.float32)
@@ -229,9 +358,21 @@ def register_pair(
     )
 
     clock = _StageClock(stage_ms, dev)
-    bits = trim_adjacency_bits(src, dst, params.noise_bound, params.cbar2, valid)
-    clock.mark("bits")
-    clique_mask = device_clique_from_bits(bits, n, params, valid)
-    clock.mark("peel")
-    scale = torch.ones((bsz,), dtype=src.dtype, device=dev)
-    return rotation_translation_stage(src, dst, scale, clique_mask, params, stage_ms)
+    if not params.estimate_scaling and mode != InlierSelectionMode.NONE:
+        bits = trim_adjacency_bits(src, dst, params.noise_bound, params.cbar2, valid)
+        clock.mark("bits")
+        clique_mask = device_clique_from_bits(bits, n, params, valid)
+        clock.mark("peel")
+        scale = torch.ones((bsz,), dtype=src.dtype, device=dev)
+        return rotation_translation_stage(src, dst, scale, clique_mask, params, stage_ms)
+    sc = scale_stage(src, dst, params, valid=valid)
+    clock.mark("scale")
+    clique_mask = device_clique_stage(sc.pair_mask, n, params, valid=valid)
+    clock.mark("clique")
+    sol = rotation_translation_stage(src, dst, sc.scale, clique_mask, params, stage_ms)
+    return sol._replace(scale_pair_mask=sc.pair_mask)
+
+
+# The JAX package's name for its ``vmap`` of ``register_pair``; the port's
+# ``register_pair`` is batched already.
+register_batch = register_pair

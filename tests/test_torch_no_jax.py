@@ -1,6 +1,6 @@
 """The port stands alone: no import of JAX or of the JAX package, CPU solves
-with JAX blocked, its own native clique library, and no silent fallback to
-the CPU."""
+(batched known and unknown scale, huge-N, exact, the facade) with JAX
+blocked, its own native clique library, and no silent fallback to the CPU."""
 
 import ast
 import pathlib
@@ -12,11 +12,13 @@ import pytest
 import torch
 
 from teaserpp_tpu_torch import (
+    RobustRegistrationSolver,
     RobustRegistrationSolverParams,
     solve_batch,
     solve_large_exact,
     solve_large_sharded,
 )
+from teaserpp_tpu_torch.clique.graph import MaxCliqueSolver
 from teaserpp_tpu_torch.device import resolve_device
 
 torch.set_num_threads(1)
@@ -47,8 +49,9 @@ sys.modules["jax"] = None
 sys.modules["teaserpp_tpu"] = None
 import numpy as np, torch
 torch.set_num_threads(1)
-from teaserpp_tpu_torch import (InlierSelectionMode, RobustRegistrationSolverParams,
-                                solve_batch, solve_large_exact, solve_large_sharded)
+from teaserpp_tpu_torch import (InlierSelectionMode, RobustRegistrationSolver,
+                                RobustRegistrationSolverParams, solve_batch,
+                                solve_large_exact, solve_large_sharded)
 rng = np.random.default_rng(0)
 src = rng.uniform(0, 0.15, (2, 3, 64))
 dst = src + np.array([0.1, -0.2, 0.05])[:, None] + rng.uniform(-5e-4, 5e-4, src.shape)
@@ -64,6 +67,12 @@ exact = solve_large_exact(src[0], dst[0], params, num_threads=1, device="cpu")
 for res in (large, exact):
     assert np.abs(res.solution.rotation.numpy() - np.eye(3)).max() < 1e-2
 assert int(exact.clique_size) >= int(large.clique_size)
+scaled = solve_batch(src, 1.5 * dst, params.replace(estimate_scaling=True), device="cpu")
+assert np.abs(scaled.scale.numpy() - 1.5).max() < 1e-2
+facade = RobustRegistrationSolver(noise_bound=0.001, rotation_cost_threshold=0.005,
+                                  device="cpu")
+sol = facade.solve(src[0], 1.5 * dst[0])
+assert sol.valid and abs(sol.scale - 1.5) < 1e-2 and len(facade.getInlierMaxClique()) >= 40
 assert "jaxlib" not in sys.modules
 
 # the exact search ran in the port's own library: nothing of the JAX package's
@@ -110,4 +119,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
     for solve in (solve_large_sharded, solve_large_exact):
         with pytest.raises(RuntimeError, match="CUDA"):
             solve(np.zeros((3, 8)), np.zeros((3, 8)), params, device=None)
+    for build in (lambda: RobustRegistrationSolver(params), MaxCliqueSolver):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
     assert resolve_device("cpu") == torch.device("cpu")
