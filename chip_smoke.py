@@ -37,6 +37,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    registrations/s and stage times;
 5. parity: the same port on the CPU for 4 of those problems must give the
    same clique masks, and rotation and translation within 1e-4;
+5a. clique-mode batch: ``solve_batch`` on the same 512 problems with the
+   library's default selector (PMC_EXACT, which the batched path runs as
+   the greedy clique over 64 seeds), best of 3 windows of 3 solves, stage
+   times and peak memory; the same gate, K1 launched once a solve, the
+   masks of 8 problems cliques of K1's graph (its plain version's words,
+   on the host); PMC_HEU and KCORE_HEU 0.5 give the same masks; KCORE_HEU
+   at a threshold under every problem's max-core share gives the top
+   k-core of phase 4, and at the median share the top k-core where the
+   shortcut fires and the greedy clique elsewhere (the count printed);
+   one more solve under ``torch.profiler`` gives the device's busy time,
+   idle share and the kernels that take the most time; then the CPU run of
+   4 problems gives equal masks (R and t within 1e-4);
 6. large path: ``solve_large_sharded`` on one seeded problem of N=100,000
    correspondences with 90% outliers (scripts/bench_large_single.py's
    recipe), launch counts set to 0 before and read after; gated on <0.5 deg
@@ -68,17 +80,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 13. their CPU/GPU parity: the facade on a problem of N=300 with unknown
     scale (equal clique, R and t within 1e-4, s within 1e-5) and 4 problems
     of phase 12 (equal clique and scale-pair masks, s within 1e-5, R and t
-    within 1e-4).
+    within 1e-4);
+14. determinism: the facade defaults (phase 11) 20 times in this process
+    and once in each of 2 fresh processes (this script with
+    ``--facade-defaults-hash``), the unknown-scale batch 5 times and the
+    clique-mode batch 3 times must each give one hash of every output's
+    bits; also prints whether the facade's s equals the CPU run's bits;
+15. ICP: ``icp_point_to_point`` on the bunny-shaped cloud against its
+    transformed copy (noise +-nb/2), started from the facade demo's result
+    turned by 2 degrees and shifted by 5 mm; gated on <0.1 deg, and the CPU
+    run within 1e-5.
 
-Phases 10-12 run no TRIM kernel (as in the JAX package, their route reaches
-no Pallas kernel): each sets the launch counts to 0 before and requires them
-to read 0 after. Then one ``{"kernels": [...]}`` line and, last, the device
-line. Without CUDA, or without the package beside it, it exits non-zero and
-prints no result.
+Phases 10-12 and 15 run no TRIM kernel (as in the JAX package, their route
+reaches no Pallas kernel): each sets the launch counts to 0 before and
+requires them to read 0 after. Then one ``{"kernels": [...]}`` line and,
+last, the device line. Without CUDA, or without the package beside it, it
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -112,6 +134,14 @@ SCALE_BATCH = 64  # scripts/bench_scale_est.py's defaults
 SCALE_N = 500
 SCALE_NOISE_BOUND = 0.01
 SCALE_PARITY_TOL = 1e-5
+DETERMINISM_FACADE_RUNS = 20
+DETERMINISM_PROCESSES = 2
+CHILD_FLAG = "--facade-defaults-hash"  # what a determinism phase's fresh process runs
+ICP_SEED = 31
+ICP_START_DEG = 2.0  # the ICP phase's start: the demo's result turned and shifted
+ICP_START_M = 0.005
+ICP_MAX_DISTANCE = 0.02
+ICP_PARITY_TOL = 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s HBM3; 67 TFLOP/s float32
 # outside the tensor cores, counting an FMA as two operations, so 33.5e12
@@ -966,6 +996,7 @@ def facade_phase(device, scale: float, repeats: int = 3) -> dict:
         scale_inlier_pairs=int(solver.getScaleInliersMask().sum()),
         rotation_cost=solver.getGNCRotationCostAtTermination(),
         first_call_s=first_s, launches=launches,
+        rotation=sol.rotation.tolist(), translation=sol.translation.tolist(),
     )
     finite = np.isfinite(sol.rotation).all() and np.isfinite(sol.translation).all()
     if not (finite and sol.rotation.shape == (3, 3) and sol.translation.shape == (3,)
@@ -1094,6 +1125,349 @@ def scale_parity_phase(device, problems, sol_dev) -> dict:
     return dict(facade=facade, batch=batch)
 
 
+def clique_params(**change):
+    """bench.py's problem parameters with the library's default inlier
+    selection (PMC_EXACT, which the batched path runs as the greedy clique;
+    kcore_heuristic_threshold 0.5; 64 seeds)."""
+    from teaserpp_tpu_torch.params import RobustRegistrationSolverParams
+
+    return RobustRegistrationSolverParams(
+        noise_bound=NOISE_BOUND, cbar2=1.0, estimate_scaling=False,
+        rotation_cost_threshold=0.005).replace(**change)
+
+
+def _hash(*arrays) -> str:
+    """sha256 of the arrays' bytes (dtype and shape included), 16 hex digits."""
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
+def _solution_hash(sol) -> str:
+    from teaserpp_tpu_torch.convert import solution_to_numpy
+
+    return _hash(*solution_to_numpy(sol))
+
+
+def _host_clique_check(src, dst, masks, problems: int) -> list:
+    """Each of the first ``problems`` masks is a clique of the TRIM graph,
+    read from the plain version of K1's words on the host. Returns the
+    clique sizes."""
+    import torch
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+    from teaserpp_tpu_torch.ops.tims import trim_beta
+    from teaserpp_tpu_torch.parallel.sharded import _unpack_bits_rows
+
+    s, d = _to(torch.device("cpu"), src[:problems], dst[:problems])
+    valid = torch.ones(problems, src.shape[-1], dtype=torch.bool)
+    words = ck.trim_adjacency_bits_plain(s, d, valid, trim_beta(NOISE_BOUND)).numpy()
+    sizes = []
+    for p in range(problems):
+        adj = _unpack_bits_rows(words[p], src.shape[-1])
+        idx = np.flatnonzero(masks[p])
+        if adj[np.ix_(idx, idx)].sum() != idx.size * (idx.size - 1):
+            raise AssertionError(f"problem {p}: the clique mask is not a clique of K1's graph")
+        sizes.append(int(idx.size))
+    return sizes
+
+
+def clique_batch_phase(device, src, dst, top_core_masks, repeats: int = 3):
+    """The clique-mode batch: ``solve_batch`` on the batched-bunny problems
+    under the library's default selector (PMC_EXACT -> the batched greedy
+    clique), gated on accuracy, K1 launched once a solve, the masks of 8
+    problems cliques of K1's graph on the host; PMC_HEU and KCORE_HEU 0.5
+    give the same masks; KCORE_HEU where the shortcut fires on every
+    problem gives the top k-core, and where it fires on some, the top k-core
+    there and the greedy clique elsewhere."""
+    import torch
+    from teaserpp_tpu_torch import solve_batch
+    from teaserpp_tpu_torch.clique.kcore import core_numbers_from_bits
+    from teaserpp_tpu_torch.convert import solution_to_numpy
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+    from teaserpp_tpu_torch.ops.tims import trim_beta
+    from teaserpp_tpu_torch.params import InlierSelectionMode
+    from teaserpp_tpu_torch.utils.metrics import rotation_error_deg, translation_error
+
+    params = clique_params()
+    src_d, dst_d = _to(device, src, dst)
+    bsz, _, n = src.shape
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+        base_bytes = torch.cuda.memory_allocated(device)
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    sol = solve_batch(src_d, dst_d, params, device=device)
+    _sync(device)
+    first_s = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    peak_gb = ((torch.cuda.max_memory_allocated(device) - base_bytes) / 1e9
+               if on_card else None)
+    _require_launched(device, launches, "solve_batch (clique modes)", ["trim_bits"])
+    if on_card and launches["trim_bits"] != 1:
+        raise AssertionError(f"K1 launched {launches['trim_bits']} times in one solve")
+
+    sol_np = solution_to_numpy(sol)
+    if not (np.isfinite(sol_np.rotation).all() and np.isfinite(sol_np.translation).all()):
+        raise AssertionError("non-finite clique-mode solution")
+    rot_err = np.array([rotation_error_deg(sol_np.rotation[p], T[:3, :3]) for p in range(bsz)])
+    t_err = np.array([translation_error(sol_np.translation[p], T[:3, 3]) for p in range(bsz)])
+    if not ((rot_err < 0.1).all() and (t_err < 0.01).all() and sol_np.valid.all()):
+        raise AssertionError(
+            f"clique-mode gate failed: max rot {rot_err.max()} deg, max t {t_err.max()} m, "
+            f"{int((~sol_np.valid).sum())} invalid")
+    host_sizes = _host_clique_check(src, dst, sol_np.clique_mask, 8)
+
+    ck.reset_launches()
+    windows = []
+    for _ in range(3):
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            solve_batch(src_d, dst_d, params, device=device)
+        _sync(device)
+        windows.append(time.perf_counter() - t0)
+    if on_card and ck.LAUNCHES["trim_bits"] != 3 * repeats:
+        raise AssertionError(f"K1 launched {ck.LAUNCHES['trim_bits']} times in "
+                             f"{3 * repeats} solves")
+    seconds_per_batch = min(windows) / repeats
+    stage_ms = {}
+    solve_batch(src_d, dst_d, params, device=device, stage_ms=stage_ms)
+
+    # the other modes that run the greedy give the same cliques
+    modes = {}
+    for name, change in (("PMC_HEU", dict(inlier_selection_mode=InlierSelectionMode.PMC_HEU)),
+                         ("KCORE_HEU_0.5", dict(inlier_selection_mode=InlierSelectionMode.KCORE_HEU,
+                                                kcore_heuristic_threshold=0.5))):
+        other = solve_batch(src_d, dst_d, clique_params(**change), device=device)
+        modes[name] = bool(np.array_equal(other.clique_mask.cpu().numpy(), sol_np.clique_mask))
+        if not modes[name]:
+            raise AssertionError(f"{name} masks differ from the default selector's")
+
+    # KCORE_HEU's shortcut: max_core > threshold * n on the problems it fires on
+    valid = torch.ones(bsz, n, dtype=torch.bool, device=device)
+    core = core_numbers_from_bits(
+        ck.trim_adjacency_bits_plain(src_d, dst_d, valid, trim_beta(NOISE_BOUND)), n, valid)
+    max_core = core.amax(dim=-1).cpu().numpy()
+    ratio = max_core / n
+    shortcut = {}
+    for label, threshold in (("all", round(0.9 * float(ratio.min()), 3)),
+                             ("some", round(float(np.median(ratio)), 3))):
+        fired = max_core.astype(np.float32) > np.float32(threshold) * np.float32(n)
+        got = solve_batch(src_d, dst_d, clique_params(
+            inlier_selection_mode=InlierSelectionMode.KCORE_HEU,
+            kcore_heuristic_threshold=threshold), device=device).clique_mask.cpu().numpy()
+        want = np.where(fired[:, None], top_core_masks, sol_np.clique_mask)
+        shortcut[label] = dict(threshold=threshold, problems_fired=int(fired.sum()),
+                               masks_equal=bool(np.array_equal(got, want)))
+        if not shortcut[label]["masks_equal"]:
+            raise AssertionError(f"KCORE_HEU shortcut masks wrong: {shortcut[label]}")
+    if shortcut["all"]["problems_fired"] != bsz:
+        raise AssertionError(f"the shortcut did not fire everywhere: {shortcut}")
+
+    sizes = sol_np.clique_mask.sum(-1)
+    return sol_np, dict(
+        batch=bsz, n=n, selector="PMC_EXACT (batched greedy), 64 seeds",
+        registrations_per_s=bsz / seconds_per_batch, seconds_per_batch=seconds_per_batch,
+        seconds_windows=[w / repeats for w in windows], first_call_s=first_s,
+        stage_ms=stage_ms, launches=launches, peak_gb_above_inputs=peak_gb,
+        rot_err_deg_max=float(rot_err.max()), trans_err_m_max=float(t_err.max()),
+        clique_size_min=int(sizes.min()), clique_size_max=int(sizes.max()),
+        top_core_size_min=int(top_core_masks.sum(-1).min()),
+        top_core_size_max=int(top_core_masks.sum(-1).max()),
+        max_core_min=int(max_core.min()), max_core_max=int(max_core.max()),
+        host_checked_clique_sizes=host_sizes, same_masks_as=modes, kcore_shortcut=shortcut,
+        gnc_iterations_max=int(sol_np.rotation_iterations.max()),
+    )
+
+
+def device_busy_phase(device, fn, top: int = 8) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA activity):
+    wall time, the summed device time of its kernels (one stream, so they do
+    not overlap), the idle share that leaves, the kernel count and the
+    kernels that took the most device time. A profiler that records no
+    device time is reported as such ("not measured"), not as an idle card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "device_time_total", 0)
+
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    if busy_ms <= 0:
+        return dict(wall_ms=wall_ms, device_busy_ms="not measured", idle_share="not measured")
+    kernels.sort(key=dev_us, reverse=True)
+    return dict(
+        wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
+        kernel_launches=int(sum(e.count for e in kernels)),
+        top_kernels=[dict(name=e.key[:90], launches=int(e.count), ms=dev_us(e) / 1e3)
+                     for e in kernels[:top]],
+    )
+
+
+def clique_parity_phase(src, dst, sol_dev) -> dict:
+    """The clique-mode batch on the CPU for the first problems: equal masks."""
+    from teaserpp_tpu_torch import solve_batch
+    from teaserpp_tpu_torch.convert import solution_to_numpy
+
+    k = PARITY_PROBLEMS
+    cpu = solution_to_numpy(solve_batch(src[:k], dst[:k], clique_params(), device="cpu"))
+    out = dict(
+        problems=k,
+        clique_masks_equal=bool(np.array_equal(cpu.clique_mask, sol_dev.clique_mask[:k])),
+        rotation_frobenius_max=float(max(np.linalg.norm(cpu.rotation[p] - sol_dev.rotation[p])
+                                         for p in range(k))),
+        translation_max=float(max(np.linalg.norm(cpu.translation[p] - sol_dev.translation[p])
+                                  for p in range(k))),
+    )
+    if not (out["clique_masks_equal"] and out["rotation_frobenius_max"] <= PARITY_TOL
+            and out["translation_max"] <= PARITY_TOL):
+        raise AssertionError(f"CPU/GPU parity of the clique-mode batch failed: {out}")
+    return out
+
+
+def facade_defaults_hash(device) -> tuple:
+    """One facade solve with the library's defaults (phase 11's problem) ->
+    (hash of R, t, s and the clique, s)."""
+    from teaserpp_tpu_torch import RobustRegistrationSolver, RobustRegistrationSolverParams
+
+    src, dst = make_problems(1, N_POINTS, scale=FACADE_SCALE)
+    solver = RobustRegistrationSolver(
+        RobustRegistrationSolverParams(**facade_param_fields(True)), device=device)
+    sol = solver.solve(src[0], dst[0])
+    clique = np.asarray(solver.getInlierMaxClique(), np.int64)
+    return _hash(sol.rotation, sol.translation, np.float64(sol.scale), clique), sol.scale
+
+
+def determinism_phase(device, scale_problems, bunny) -> dict:
+    """Equal inputs, equal bits: the facade defaults 20 times here and once
+    in each of 2 fresh processes, the unknown-scale batch 5 times, the
+    clique-mode batch 3 times. Also reports whether the facade's s equals
+    the port's CPU run bit for bit (no gate)."""
+    import torch
+    from teaserpp_tpu_torch import solve_batch
+
+    facade = [facade_defaults_hash(device) for _ in range(DETERMINISM_FACADE_RUNS)]
+    children = [subprocess.Popen([sys.executable, __file__, CHILD_FLAG], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+                for _ in range(DETERMINISM_PROCESSES)]
+    child_hashes = []
+    for proc in children:
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"determinism child failed: {err[-2000:]}")
+        child_hashes.append(json.loads(out.strip().splitlines()[-1])["hash"])
+
+    src, dst, *_ = scale_problems
+    s_d, d_d = _to(device, src, dst)
+    scale_hashes = [_solution_hash(solve_batch(s_d, d_d, scale_params(), device=device))
+                    for _ in range(5)]
+    b_src, b_dst = _to(device, *bunny)
+    clique_hashes = [_solution_hash(solve_batch(b_src, b_dst, clique_params(), device=device))
+                     for _ in range(3)]
+    cpu_hash, cpu_s = facade_defaults_hash(torch.device("cpu"))
+    facade_hashes = [h for h, _ in facade]
+    out = dict(
+        facade_defaults=dict(runs=len(facade), processes=len(children),
+                             hashes=sorted(set(facade_hashes + child_hashes)),
+                             scale=facade[0][1]),
+        unknown_scale_batch=dict(runs=5, hashes=sorted(set(scale_hashes))),
+        clique_mode_batch=dict(runs=3, hashes=sorted(set(clique_hashes))),
+        facade_scale_equals_cpu_bits=bool(np.float64(cpu_s) == np.float64(facade[0][1])),
+        facade_cpu_scale=cpu_s, facade_equals_cpu_bits=cpu_hash == facade_hashes[0],
+    )
+    for name in ("facade_defaults", "unknown_scale_batch", "clique_mode_batch"):
+        if len(out[name]["hashes"]) != 1:
+            raise AssertionError(f"{name} is not bit-stable: {out[name]}")
+    return out
+
+
+def icp_phase(device, demo: dict) -> dict:
+    """``icp_point_to_point`` on the bunny-shaped cloud (N=1889) against its
+    transformed copy (noise +-nb/2, no outliers), from the facade demo's
+    result turned by 2 degrees and shifted by 5 mm; gated on <0.1 deg, and
+    the CPU run within 1e-5."""
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+    from teaserpp_tpu_torch.solvers.icp import icp_point_to_point
+    from teaserpp_tpu_torch.utils.metrics import rotation_error_deg, translation_error
+
+    rng = np.random.default_rng(ICP_SEED)
+    cloud = np.random.default_rng(0).uniform(0.0, 0.15, (3, N_POINTS))  # make_problems' cloud
+    target = T[:3, :3] @ cloud + T[:3, 3:4]
+    target = target + rng.uniform(-NOISE_BOUND / 2, NOISE_BOUND / 2, target.shape)
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    ang = np.radians(ICP_START_DEG)
+    turn = np.eye(3) + np.sin(ang) * k + (1 - np.cos(ang)) * (k @ k)
+    shift = rng.normal(size=3)
+    shift *= ICP_START_M / np.linalg.norm(shift)
+    r0 = turn @ np.asarray(demo["rotation"])
+    t0 = np.asarray(demo["translation"]) + shift
+    src32, dst32 = cloud.astype(np.float32), target.astype(np.float32)
+
+    def run(dev):
+        return icp_point_to_point(src32, dst32, ICP_MAX_DISTANCE, r_init=r0, t_init=t0,
+                                  max_iterations=50, device=dev)
+
+    ck.reset_launches()
+    t_start = time.perf_counter()
+    res = run(device)
+    _sync(device)
+    first_s = time.perf_counter() - t_start
+    launches = dict(ck.LAUNCHES)
+    _require_no_launch(launches, "icp_point_to_point")
+    times = []
+    for _ in range(3):
+        t_start = time.perf_counter()
+        run(device)
+        _sync(device)
+        times.append(time.perf_counter() - t_start)
+    cpu = run("cpu")
+    r, t = res.rotation.cpu().double().numpy(), res.translation.cpu().double().numpy()
+    out = dict(
+        n=N_POINTS, start_rot_err_deg=rotation_error_deg(r0, T[:3, :3]),
+        start_trans_err_m=translation_error(t0, T[:3, 3]),
+        rot_err_deg=rotation_error_deg(r, T[:3, :3]), trans_err_m=translation_error(t, T[:3, 3]),
+        iterations=int(res.iterations), rmse=float(res.rmse), fitness=float(res.fitness),
+        cpu_rotation_max_abs=float(np.abs(cpu.rotation.double().numpy() - r).max()),
+        cpu_translation_max_abs=float(np.abs(cpu.translation.double().numpy() - t).max()),
+        cpu_iterations=int(cpu.iterations), first_call_s=first_s,
+        seconds_per_icp=statistics.median(times), launches=launches,
+    )
+    if not (np.isfinite(r).all() and out["rot_err_deg"] < 0.1
+            and out["cpu_rotation_max_abs"] <= ICP_PARITY_TOL
+            and out["cpu_translation_max_abs"] <= ICP_PARITY_TOL):
+        raise AssertionError(f"ICP gate failed: {out}")
+    return out
+
+
+def determinism_child() -> int:
+    """One facade-defaults solve on the card; prints its hash (for the
+    determinism phase's fresh processes)."""
+    import torch
+
+    digest, scale = facade_defaults_hash(torch.device("cuda"))
+    print(json.dumps({"hash": digest, "scale": scale}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1105,6 +1479,8 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: teaserpp_tpu_torch not importable: {exc}", file=sys.stderr)
         return 1
+    if sys.argv[1:] == [CHILD_FLAG]:
+        return determinism_child()
 
     card = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1141,6 +1517,18 @@ def main() -> int:
     parity = parity_phase(src, dst, sol)
     print(json.dumps({"parity": parity}), flush=True)
 
+    clique_sol, clique = clique_batch_phase(device, src, dst, sol.clique_mask)
+    print(json.dumps({"clique_mode_batch": clique, "card": card}), flush=True)
+    from teaserpp_tpu_torch import solve_batch
+
+    src_d, dst_d = _to(device, src, dst)
+    print(json.dumps({"clique_mode_profile": device_busy_phase(
+        device, lambda: solve_batch(src_d, dst_d, clique_params(), device=device)),
+        "card": card}), flush=True)
+    del src_d, dst_d
+    print(json.dumps({"clique_mode_parity": clique_parity_phase(src, dst, clique_sol)}),
+          flush=True)
+
     large = large_phase(device, LARGE_N)
     print(json.dumps({"large_path": large, "card": card}), flush=True)
 
@@ -1164,12 +1552,18 @@ def main() -> int:
     scale_parity = scale_parity_phase(device, scale_problems, scale_sol)
     print(json.dumps({"unknown_scale_parity": scale_parity}), flush=True)
 
+    determinism = determinism_phase(device, scale_problems, (src, dst))
+    print(json.dumps({"determinism": determinism}), flush=True)
+    icp = icp_phase(device, demo)
+    print(json.dumps({"icp": icp, "card": card}), flush=True)
+
     # which shape's numbers stand at the top of each kernel's entry: the one
     # its path gives it
     paths = {"solve_batch": path["launches"], "solve_large_sharded": large["launches"],
              "solve_large_exact": exact["launches"], "public_kernel_ops": ops["launches"],
              "facade_demo": demo["launches"], "facade_defaults": defaults["launches"],
-             "unknown_scale_batch": scale_batch["launches"]}
+             "unknown_scale_batch": scale_batch["launches"],
+             "clique_mode_batch": clique["launches"], "icp": icp["launches"]}
     entries = [
         ("trim_bits", "teaserpp_tpu_torch/csrc/trim_bits.cu",
          "teaserpp_tpu/ops/pallas_kernels.py:165", 0),

@@ -7,17 +7,23 @@ package. Entry points run on CUDA unless called with ``device="cpu"``.
 Ported so far: the public solver ``RobustRegistrationSolver`` (every
 inlier-selection mode, GNC-TLS / FGR / Quatro, CHAIN and COMPLETE, known
 and unknown scale, custom stage estimators), the batched solve
-(``solve_batch`` / ``register_batch``, known or unknown scale, NONE or
-KCORE_HEU at threshold 0), and the huge-N single-problem solve on one
-device (``solve_large_sharded``, ``solve_large_exact``). The three TPU
-kernels of the JAX package are hand-written CUDA kernels
-(``csrc/trim_bits.cu``, ``csrc/trim_degrees.cu``,
-``csrc/trim_adjacency.cu``; wrappers in ``ops/cuda_kernels.py``).
+(``solve_batch`` / ``register_batch``, known or unknown scale, every
+inlier-selection mode: the top k-core or the batched greedy clique), the
+huge-N single-problem solve on one device (``solve_large_sharded``,
+``solve_large_exact``), point-to-point ICP (``solvers/icp.py``), PLY and PCD
+I/O (``io/``), batch results files (``parallel/results_io.py``), the point
+containers and helpers (``utils/``) and a profiler hook
+(``utils/timing.py::trace_to``). The three TPU kernels of the JAX package
+are hand-written CUDA kernels (``csrc/trim_bits.cu``,
+``csrc/trim_degrees.cu``, ``csrc/trim_adjacency.cu``; wrappers in
+``ops/cuda_kernels.py``).
 """
 
 from teaserpp_tpu_torch.params import (
+    GNCRotationSolverParams,
     InlierGraphFormulation,
     InlierSelectionMode,
+    MaxCliqueSolverParams,
     RobustRegistrationSolverParams,
     RotationEstimationAlgorithm,
 )
@@ -37,11 +43,22 @@ from teaserpp_tpu_torch.solvers.registration import (
     RobustRegistrationSolver,
 )
 
+# Reference-compatible aliases, as the JAX package's (the reference's
+# python/teaserpp_python/__init__.py re-exports the enums at module scope).
+ROTATION_ESTIMATION_ALGORITHM = RotationEstimationAlgorithm
+INLIER_SELECTION_MODE = InlierSelectionMode
+INLIER_GRAPH_FORMULATION = InlierGraphFormulation
+
 __all__ = [
+    "GNCRotationSolverParams",
+    "INLIER_GRAPH_FORMULATION",
+    "INLIER_SELECTION_MODE",
     "InlierGraphFormulation",
     "InlierSelectionMode",
     "LargeSolveResult",
+    "MaxCliqueSolverParams",
     "PipelineSolution",
+    "ROTATION_ESTIMATION_ALGORITHM",
     "RegistrationSolution",
     "RobustRegistrationSolver",
     "RobustRegistrationSolverParams",

@@ -2,7 +2,9 @@
 
 Counterpart of ``teaserpp_tpu/clique/kcore.py``: the level-by-level peel
 (:func:`core_numbers_from_bits`), the binary-search top core
-(:func:`max_core_from_bits`) and the fixed-k core (:func:`kcore_mask_from_bits`).
+(:func:`max_core_from_bits`), the fixed-k core (:func:`kcore_mask_from_bits`),
+and the peel on a dense adjacency, packed (:func:`core_numbers_bitset`, which
+:func:`core_numbers` is) or as masked row sums (:func:`core_numbers_matvec`).
 The batch peel removes, each
 round, every active vertex whose active degree is at most the current core
 level ``k``; degrees are popcounts of the adjacency words ANDed with the
@@ -17,7 +19,7 @@ bit ``b`` of a word is set iff the word's two's-complement value has it.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -50,6 +52,22 @@ def pack_bits_u32_rows(mask: torch.Tensor) -> torch.Tensor:
     bits = torch.nn.functional.pad(mask.to(torch.int32), (0, 0, 0, w * 32 - n))
     bits = bits.reshape(*mask.shape[:-2], w, 32, m)
     return _pack_last(bits.transpose(-1, -2))
+
+
+def unpack_bits_u32_rows(bits: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits_u32_rows` on the device: (..., W, M) int32
+    words -> (..., n, M) bool, element [i, j] = bit ``i % 32`` of word
+    [i // 32, j].
+
+    One shift and mask a bit position, each writing its rows ``b, b + 32,
+    ...`` of the output; the temporaries are the size of the words.
+    """
+    out = torch.empty((*bits.shape[:-2], n, bits.shape[-1]), dtype=torch.bool,
+                      device=bits.device)
+    for b in range(min(32, n)):
+        rows = (n - b + 31) // 32  # rows b, b + 32, ... below n
+        out[..., b::32, :] = ((bits[..., :rows, :] >> b) & 1) != 0
+    return out
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -162,15 +180,20 @@ def core_numbers_from_bits(
 
     Invalid vertices get core number -1. Returns ``(B, N)`` int32.
     """
-    bsz = adj_bits.shape[0]
-    dev = adj_bits.device
+    return _peel(adj_bits.shape[0], n, valid, adj_bits.device,
+                 lambda active: active_degrees(adj_bits, active))
+
+
+def _peel(bsz: int, n: int, valid: Optional[torch.Tensor], dev,
+          degrees: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """The batch peel over ``degrees(active)`` (B, N) int32 -> core numbers."""
     active = _initial_active(bsz, n, valid, dev)
     core = torch.full((bsz, n), -1, dtype=torch.int32, device=dev)
     k = torch.zeros((bsz, 1), dtype=torch.int32, device=dev)
     big = torch.tensor(n + 1, dtype=torch.int32, device=dev)
     while bool(active.any()):  # the round's one host sync
         running = active.any(dim=-1, keepdim=True)
-        deg = active_degrees(adj_bits, active)  # (B, N)
+        deg = degrees(active)
         mind = torch.where(active, deg, big).amin(dim=-1, keepdim=True)
         k = torch.where(running, torch.maximum(k, mind), k)
         remove = active & (deg <= k)
@@ -179,14 +202,38 @@ def core_numbers_from_bits(
     return core
 
 
-def core_numbers(
+def core_numbers_bitset(
     adj: torch.Tensor, valid: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """Core numbers of a batched ``(B, N, N)`` bool symmetric adjacency.
 
-    Packs the rows to words and peels them with :func:`core_numbers_from_bits`.
+    Packs the rows to words and peels them with :func:`core_numbers_from_bits`,
+    so each round streams N^2 / 8 bytes a problem.
     """
     return core_numbers_from_bits(pack_bits_u32_rows(adj), adj.shape[-1], valid)
+
+
+def core_numbers(
+    adj: torch.Tensor, valid: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Core numbers of a batched ``(B, N, N)`` bool symmetric adjacency, by
+    :func:`core_numbers_bitset`. Invalid vertices get -1; ``(B, N)`` int32."""
+    return core_numbers_bitset(adj, valid)
+
+
+def core_numbers_matvec(
+    adj: torch.Tensor, valid: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Core numbers by the same batch peel with degrees as masked row sums.
+
+    Counterpart of the JAX package's int8 matvec peel: each round's degrees
+    are ``(adj & active).sum(-1)`` in int32, an integer contraction with no
+    float accumulation, so the core numbers equal :func:`core_numbers_bitset`'s.
+    ``(B, N, N)`` bool -> ``(B, N)`` int32, invalid vertices -1.
+    """
+    adj = adj.to(torch.bool)
+    return _peel(adj.shape[0], adj.shape[-1], valid, adj.device,
+                 lambda active: (adj & active[:, None, :]).sum(dim=-1, dtype=torch.int32))
 
 
 def max_kcore_mask(

@@ -8,8 +8,12 @@ candidate estimate and its cost.
 
 The JAX package carries the event streams through one unstable
 multi-operand sort; here a stable sort of the positions gathers each
-stream. Events at equal positions may come out in another order, which can
-change the prefix sums only inside a tie.
+stream, one stream at a time. Events at equal positions may come out in
+another order, which can change the prefix sums only inside a tie. The
+prefix sums are :func:`prefix_sum`, a float64 scan whose order of additions
+is fixed by the length alone, so equal inputs give equal bits on every run,
+on the CPU and the card alike (``torch.cumsum`` on CUDA floats promises
+neither).
 """
 
 from __future__ import annotations
@@ -17,6 +21,51 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Union
 
 import torch
+
+# Elements per block of :func:`prefix_sum`: the full-length passes are the
+# in-block ones, log2 of this, plus one to add the block carries.
+_SCAN_BLOCK = 64
+
+
+def _shifted_add_scan(x: torch.Tensor) -> torch.Tensor:
+    """Hillis-Steele inclusive scan along the last dimension: ``ceil(log2 L)``
+    passes, pass ``p`` adding each element ``2^p`` places back into a fresh
+    tensor. Each pass is one elementwise add."""
+    n = x.shape[-1]
+    k = 1
+    while k < n:
+        nxt = torch.empty_like(x)
+        nxt[..., :k] = x[..., :k]
+        torch.add(x[..., k:], x[..., :-k], out=nxt[..., k:])
+        x = nxt
+        k *= 2
+    return x
+
+
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last dimension, in a fixed order.
+
+    In float64, rounded once to ``x``'s dtype at the end: the last dimension
+    is cut into blocks of ``_SCAN_BLOCK`` (zero-padded), each block scanned
+    by shifted adds, the block sums scanned the same way, and each block's
+    predecessors' sum added to it. Every step is an elementwise add, so the
+    order of additions depends on the length alone, never on scheduling, and
+    the CPU and the card give the same bits. A tree scan's partial sums run
+    over windows of the input, far larger than a prefix where the events'
+    opens and closes cancel (a TLS sweep's running sums), so they are kept
+    in float64: each output is its float64 sum, at most
+    ``ceil(log2 L) + 2`` additions deep, rounded once.
+    """
+    out = x.to(torch.float64, copy=True)
+    n = out.shape[-1]
+    if n <= _SCAN_BLOCK:
+        return _shifted_add_scan(out).to(x.dtype)
+    rows = -(-n // _SCAN_BLOCK)
+    out = torch.nn.functional.pad(out, (0, rows * _SCAN_BLOCK - n))
+    out = _shifted_add_scan(out.reshape(*out.shape[:-1], rows, _SCAN_BLOCK))
+    carry = _shifted_add_scan(out[..., -1])  # inclusive prefix of the block sums
+    out[..., 1:, :] += carry[..., :-1, None]
+    return out.reshape(*out.shape[:-2], rows * _SCAN_BLOCK)[..., :n].to(x.dtype)
 
 
 class ScalarTLSResult(NamedTuple):
@@ -42,28 +91,25 @@ def scalar_tls(
     x = x.to(dtype)
     ranges = ranges.to(dtype)
     vmask = torch.ones_like(x) if valid is None else valid.to(dtype)
-    ones = torch.ones_like(x)
-    w = vmask / torch.where(vmask > 0, ranges * ranges, ones)
+    w = vmask / torch.where(vmask > 0, ranges * ranges, torch.ones_like(x))
 
-    def ev(q):  # a per-measurement quantity on its two events
-        return torch.cat([q, q], dim=-1)
+    perm = torch.sort(torch.cat([x - ranges, x + ranges], dim=-1), dim=-1,
+                      stable=True).indices
 
-    vals = torch.cat([x - ranges, x + ranges], dim=-1)  # (..., 2N)
-    sign = torch.cat([ones, -ones], dim=-1)
-    # per-event signed deltas of the reference's running sums
-    # (registration.cc:63-68); invalid measurements add nothing
-    streams = (
-        sign * ev(vmask),  # card
-        sign * ev(w),
-        sign * ev(w * x),
-        -sign * ev(ranges * vmask),  # outlier penalty
-        sign * ev(x * vmask),
-        sign * ev(x * x * vmask),
-    )
-    perm = torch.sort(vals, dim=-1, stable=True).indices
-    card, cum_w, cum_xw, cum_rng, cum_sx, cum_sx2 = (
-        torch.cumsum(torch.gather(d, -1, perm), dim=-1) for d in streams
-    )
+    def running(q):
+        """Prefix sums, over the sorted events, of the signed deltas of a
+        per-measurement quantity ``q`` (+q opening, -q closing; reference
+        registration.cc:63-68). One stream is built, gathered and scanned at
+        a time, so only its scan outlives the call."""
+        return prefix_sum(torch.gather(torch.cat([q, -q], dim=-1), -1, perm))
+
+    # invalid measurements add nothing (q is 0 there)
+    card = running(vmask)
+    cum_w = running(w)
+    cum_xw = running(w * x)
+    cum_rng = -running(ranges * vmask)  # outlier penalty: closing adds the range back
+    cum_sx = running(x * vmask)
+    cum_sx2 = running(x * x * vmask)
     outlier_pen = torch.sum(ranges * vmask, dim=-1, keepdim=True) + cum_rng
 
     have_consensus = card > 0.5
@@ -98,19 +144,15 @@ def scalar_tls_fixed_range(
     )
 
     b = beta.expand_as(x)
-    vals = torch.cat([x - b, x + b], dim=-1)  # (..., 2N)
-    sign = torch.cat([vmask, -vmask], dim=-1)
-    xx = torch.cat([x, x], dim=-1)
-    sx = sign * xx
-    sx2 = sx * xx
+    perm = torch.sort(torch.cat([x - b, x + b], dim=-1), dim=-1, stable=True).indices
 
-    vals, perm = torch.sort(vals, dim=-1, stable=True)
-    sign_s = torch.gather(sign, -1, perm)
-    sx_s = torch.gather(sx, -1, perm)
-    sx2_s = torch.gather(sx2, -1, perm)
-    card = torch.cumsum(sign_s, dim=-1)
-    cum_sx = torch.cumsum(sx_s, dim=-1)
-    cum_sx2 = torch.cumsum(sx2_s, dim=-1)
+    def running(q):  # as scalar_tls's: +q opening, -q closing, sorted, scanned
+        return prefix_sum(torch.gather(torch.cat([q, -q], dim=-1), -1, perm))
+
+    card = running(vmask)
+    sx = vmask * x
+    cum_sx = running(sx)
+    cum_sx2 = running(sx * x)
     nv = torch.sum(vmask, dim=-1, keepdim=True)
 
     have_consensus = card > 0.5

@@ -51,14 +51,16 @@ def solve_batch(
     valid=None,
     device: DeviceLike = None,
     stage_ms: Optional[Dict[str, float]] = None,
+    use_matmul_norms: bool = False,
 ) -> PipelineSolution:
     """Solve a (B, 3, N) problem batch on ``device`` (CUDA unless named).
 
-    Known or unknown scale (``params.estimate_scaling``), inlier selection
-    NONE or KCORE_HEU at threshold 0, any rotation algorithm; KCORE_HEU above
-    0 and PMC_HEU / PMC_EXACT raise ``NotImplementedError`` (the facade,
-    ``RobustRegistrationSolver``, runs them one problem at a time). See
-    :func:`register_pair` for ``stage_ms``.
+    Known or unknown scale (``params.estimate_scaling``), every
+    inlier-selection mode and rotation algorithm, so the library's default
+    params run as they are. PMC_EXACT runs the batched greedy clique, as the
+    JAX package's batched path does; the exact search is the facade's,
+    ``RobustRegistrationSolver``, one problem at a time. See
+    :func:`register_pair` for ``stage_ms`` and ``use_matmul_norms``.
     """
     return register_pair(src, dst, params, valid=valid, device=device,
-                         stage_ms=stage_ms)
+                         stage_ms=stage_ms, use_matmul_norms=use_matmul_norms)

@@ -4,16 +4,18 @@ Counterpart of ``teaserpp_tpu/solvers/pipeline.py``. ``register_pair`` takes
 one of two branches, as there:
 
 * known scale with a clique mode (pipeline.py:358-365 there): TRIM
-  adjacency bits (CUDA kernel) -> batch k-core peel -> top-core mask;
+  adjacency bits (CUDA kernel) -> batch k-core peel -> inlier selection;
 * otherwise (unknown scale, or NONE): TIM norms -> TLS scale or the TRIM
-  pair selector -> pair-mask adjacency -> top-core mask (or every point).
+  pair selector -> pair-mask adjacency -> inlier selection (or every point).
 
 Both then run chain TIMs -> GNC-TLS / FGR / Quatro rotation -> TLS
 translation. Every function takes a batch dimension where the JAX package
-used ``vmap``. Inlier selection in a batch is NONE or KCORE_HEU at
-threshold 0; KCORE_HEU above 0 and PMC_HEU / PMC_EXACT need a
-problem-batched greedy clique and raise ``NotImplementedError`` (the facade,
-``solvers/registration.py``, runs every mode one problem at a time).
+used ``vmap``. Inlier selection in a batch takes every mode, as JAX's
+``device_clique_from_adjacency``: the top k-core (KCORE_HEU at threshold 0,
+or above it where the k-core shortcut holds) or the batched greedy clique
+(``clique/heuristic.py``), which PMC_HEU and PMC_EXACT both run. So the
+batched path is not exact in either package; the facade
+(``solvers/registration.py``) runs the exact search one problem at a time.
 """
 
 from __future__ import annotations
@@ -24,7 +26,12 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from teaserpp_tpu_torch.clique.graph import adjacency_from_pair_mask
-from teaserpp_tpu_torch.clique.kcore import core_numbers_from_bits, pack_bits_u32_rows
+from teaserpp_tpu_torch.clique.heuristic import heuristic_max_clique
+from teaserpp_tpu_torch.clique.kcore import (
+    core_numbers_from_bits,
+    pack_bits_u32_rows,
+    unpack_bits_u32_rows,
+)
 from teaserpp_tpu_torch.device import DeviceLike, resolve_device
 from teaserpp_tpu_torch.ops.procrustes import rotate, svd_rot
 from teaserpp_tpu_torch.ops.tims import (
@@ -91,18 +98,6 @@ class _StageClock:
             self._t = t
 
 
-def _require_top_kcore(params: RobustRegistrationSolverParams) -> None:
-    mode = params.resolved_inlier_selection_mode()
-    if mode != InlierSelectionMode.KCORE_HEU or params.kcore_heuristic_threshold > 0:
-        raise NotImplementedError(
-            f"batched inlier selection {mode.name} with kcore_heuristic_threshold="
-            f"{params.kcore_heuristic_threshold} is not ported yet, only NONE and "
-            "KCORE_HEU at threshold 0 (ROADMAP queue 1, item 5: a problem-batched "
-            "clique/heuristic.py inside register_pair; RobustRegistrationSolver "
-            "runs every mode)"
-        )
-
-
 def _solve_rotation(
     src_tims: torch.Tensor,
     dst_tims: torch.Tensor,
@@ -130,19 +125,79 @@ def scale_stage(
     dst: torch.Tensor,
     params: RobustRegistrationSolverParams,
     valid: Optional[torch.Tensor] = None,
+    use_matmul_norms: bool = False,
 ) -> ScaleStageResult:
     """TIM norms + TLS scale estimate or known-scale TRIM pair selection.
 
     Reference flow: computeTIMs (registration.cc:599-600) + solveForScale
     (registration.cc:603). Only the (B, K) TIM norms are built, never the
-    TIM vectors.
+    TIM vectors; ``use_matmul_norms`` takes them in Gram form
+    (:func:`compute_tim_norms`).
     """
-    src_norms = compute_tim_norms(src)
-    dst_norms = compute_tim_norms(dst)
+    src_norms = compute_tim_norms(src, use_matmul=use_matmul_norms)
+    dst_norms = compute_tim_norms(dst, use_matmul=use_matmul_norms)
     pv = tim_pair_valid(valid, src.shape[-1])
     solve = solve_scale_tls if params.estimate_scaling else select_scale_inliers
     res = solve(src_norms, dst_norms, params.noise_bound, params.cbar2, valid=pv)
     return ScaleStageResult(scale=res.scale, pair_mask=res.inliers)
+
+
+def _select_inliers(
+    adj_bits: torch.Tensor,
+    n: int,
+    params: RobustRegistrationSolverParams,
+    valid: Optional[torch.Tensor],
+    adj: Optional[torch.Tensor],
+    clock: "_StageClock",
+    peel_stage: str,
+) -> torch.Tensor:
+    """Inlier selection of JAX ``device_clique_from_adjacency`` on row-packed
+    words (B, W, N), batched -> (B, N) bool.
+
+    The peel's core numbers give the top k-core. KCORE_HEU at threshold 0
+    takes it ("always take the top k-core", reference registration.h:480-482).
+    KCORE_HEU above 0 takes it where ``threshold != 1`` and ``max_core >
+    threshold * n_valid`` (reference graph.cc:66-81) and runs the greedy
+    clique elsewhere, its lanes empty where the shortcut holds; PMC_HEU and
+    PMC_EXACT run the greedy clique, as JAX's ``else`` branch does. The
+    greedy's (B, N, N) bool adjacency is ``adj`` or, when None, the words
+    unpacked on the device; it runs only when some problem needs it, and
+    the clock marks ``greedy`` after it, ``peel_stage`` after the peel.
+    """
+    mode = params.resolved_inlier_selection_mode()
+    threshold = params.kcore_heuristic_threshold
+    core = core_numbers_from_bits(adj_bits, n, valid)
+    max_core = core.amax(dim=-1)
+    mask = core >= max_core[:, None]
+    use_kcore = None
+    run_greedy = True
+    if mode == InlierSelectionMode.KCORE_HEU:
+        if threshold <= 0:
+            run_greedy = False
+        else:
+            if valid is None:
+                nv = torch.full_like(max_core, n, dtype=torch.float32)
+            else:
+                nv = valid.sum(dim=-1).to(torch.float32)
+            use_kcore = (max_core.to(torch.float32) > threshold * nv) & (threshold != 1)
+            run_greedy = not bool(use_kcore.all())  # one host sync
+    clock.mark(peel_stage)
+    if run_greedy:
+        greedy_valid = valid
+        if adj is None:
+            # the words hold `valid` already: no masked copy of the unpacked
+            # adjacency (the seeds and the final AND see `valid` all the same)
+            adj, greedy_valid = unpack_bits_u32_rows(adj_bits, n), None
+        heu = heuristic_max_clique(
+            adj, valid=greedy_valid, num_seeds=params.max_clique_heuristic_seeds,
+            skip=use_kcore, core=core,
+        )
+        mask = heu.mask if use_kcore is None else torch.where(use_kcore[:, None], mask,
+                                                              heu.mask)
+        clock.mark("greedy")
+    if valid is not None:
+        mask = mask & valid
+    return mask
 
 
 def device_clique_from_bits(
@@ -151,17 +206,11 @@ def device_clique_from_bits(
     params: RobustRegistrationSolverParams,
     valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Top k-core of each problem's row-packed adjacency -> (B, N) bool mask.
-
-    The KCORE_HEU threshold-0 selector ("always take the top k-core",
-    reference registration.h:480-482).
-    """
-    _require_top_kcore(params)
-    core = core_numbers_from_bits(adj_bits, n, valid)
-    mask = core >= core.amax(dim=-1, keepdim=True)
-    if valid is not None:
-        mask = mask & valid
-    return mask
+    """Inlier selection on each problem's row-packed (B, W, N) adjacency
+    words -> (B, N) bool mask: the top k-core or the greedy clique, as
+    :func:`device_clique_from_adjacency` says."""
+    return _select_inliers(adj_bits, n, params, valid, None,
+                           _StageClock(None, adj_bits.device), "peel")
 
 
 def device_clique_from_adjacency(
@@ -169,9 +218,28 @@ def device_clique_from_adjacency(
     params: RobustRegistrationSolverParams,
     valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Inlier selection from a dense (B, N, N) bool adjacency -> (B, N) mask:
-    the top k-core of the packed rows (KCORE_HEU at threshold 0)."""
-    return device_clique_from_bits(pack_bits_u32_rows(adj), adj.shape[-1], params, valid)
+    """Inlier selection from a dense (B, N, N) bool adjacency -> (B, N) mask.
+
+    Every mode, as the JAX function of this name: KCORE_HEU at threshold 0
+    takes the top k-core; above 0 the top k-core where it holds more than
+    ``threshold`` of the valid vertices, else the greedy clique; PMC_HEU and
+    PMC_EXACT the greedy clique over ``max_clique_heuristic_seeds`` seeds
+    (not an exact search, in either package). ``valid`` is ANDed in last.
+    """
+    return _select_inliers(pack_bits_u32_rows(adj), adj.shape[-1], params, valid, adj,
+                           _StageClock(None, adj.device), "clique")
+
+
+def _clique_from_pairs(pair_mask, n, params, valid, clock) -> torch.Tensor:
+    if params.resolved_inlier_selection_mode() == InlierSelectionMode.NONE:
+        mask = torch.ones((pair_mask.shape[0], n), dtype=torch.bool, device=pair_mask.device)
+        mask = mask if valid is None else mask & valid
+        clock.mark("clique")
+        return mask
+    adj = adjacency_from_pair_mask(pair_mask, n)
+    if valid is not None:
+        adj = adj & valid[:, None, :] & valid[:, :, None]
+    return _select_inliers(pack_bits_u32_rows(adj), n, params, valid, adj, clock, "clique")
 
 
 def device_clique_stage(
@@ -182,17 +250,12 @@ def device_clique_stage(
 ) -> torch.Tensor:
     """Inlier selection from the scale stage's (B, K) pair mask -> (B, N) mask.
 
-    NONE keeps every valid point; KCORE_HEU at threshold 0 scatters the pairs
-    into an adjacency and takes its top k-core (reference
-    registration.cc:609-654).
+    NONE keeps every valid point; any other mode scatters the pairs into an
+    adjacency and selects on it as :func:`device_clique_from_adjacency`
+    (reference registration.cc:609-654).
     """
-    if params.resolved_inlier_selection_mode() == InlierSelectionMode.NONE:
-        mask = torch.ones((pair_mask.shape[0], n), dtype=torch.bool, device=pair_mask.device)
-        return mask if valid is None else mask & valid
-    adj = adjacency_from_pair_mask(pair_mask, n)
-    if valid is not None:
-        adj = adj & valid[:, None, :] & valid[:, :, None]
-    return device_clique_from_adjacency(adj, params, valid)
+    return _clique_from_pairs(pair_mask, n, params, valid,
+                              _StageClock(None, pair_mask.device))
 
 
 def _polish_rt(src, dst, scale, rotation, translation, inlier_mask):
@@ -324,6 +387,7 @@ def register_pair(
     valid=None,
     device: DeviceLike = None,
     stage_ms: Optional[Dict[str, float]] = None,
+    use_matmul_norms: bool = False,
 ) -> PipelineSolution:
     """Solve a batch of problems (B, 3, N): scale -> clique -> rotation ->
     translation.
@@ -331,18 +395,19 @@ def register_pair(
     The batch dimension stands where the JAX package ``vmap``s its per-problem
     ``register_pair``; one problem is a batch of one. The inputs (numpy arrays
     or tensors) go to ``device`` — CUDA unless ``device`` names another — as
-    float32; ``valid`` (B, N) masks padded correspondences. Known scale with
-    KCORE_HEU builds the TRIM adjacency bits directly (the returned
-    ``scale_pair_mask`` is then (B, 0)); unknown scale, or NONE, runs the
-    scale stage over the (B, K) TIM norms and returns its pair mask. Pass a
-    dict as ``stage_ms`` to have the host wall time of each stage (``bits``,
-    ``peel`` or ``scale``, ``clique``; then ``chain_tims``, ``rotation``,
-    ``translation``) added to it; this synchronises the device after every
-    stage.
+    float32; ``valid`` (B, N) masks padded correspondences. Every
+    inlier-selection mode runs (see :func:`device_clique_from_adjacency`).
+    Known scale with a clique mode builds the TRIM adjacency bits directly
+    (the returned ``scale_pair_mask`` is then (B, 0)); unknown scale, or
+    NONE, runs the scale stage over the (B, K) TIM norms, in Gram form with
+    ``use_matmul_norms`` (which the bits branch ignores, as in JAX), and
+    returns its pair mask. Pass a dict as ``stage_ms`` to have the host wall
+    time of each stage (``bits``, ``peel`` or ``scale``, ``clique``; then
+    ``greedy`` where the greedy clique ran; then ``chain_tims``,
+    ``rotation``, ``translation``) added to it; this synchronises the device
+    after every stage.
     """
     mode = params.resolved_inlier_selection_mode()
-    if mode != InlierSelectionMode.NONE:
-        _require_top_kcore(params)
     dev = resolve_device(device)
     src = _to_device(src, dev, torch.float32)
     dst = _to_device(dst, dev, torch.float32)
@@ -361,14 +426,13 @@ def register_pair(
     if not params.estimate_scaling and mode != InlierSelectionMode.NONE:
         bits = trim_adjacency_bits(src, dst, params.noise_bound, params.cbar2, valid)
         clock.mark("bits")
-        clique_mask = device_clique_from_bits(bits, n, params, valid)
-        clock.mark("peel")
+        clique_mask = _select_inliers(bits, n, params, valid, None, clock, "peel")
+        del bits
         scale = torch.ones((bsz,), dtype=src.dtype, device=dev)
         return rotation_translation_stage(src, dst, scale, clique_mask, params, stage_ms)
-    sc = scale_stage(src, dst, params, valid=valid)
+    sc = scale_stage(src, dst, params, valid=valid, use_matmul_norms=use_matmul_norms)
     clock.mark("scale")
-    clique_mask = device_clique_stage(sc.pair_mask, n, params, valid=valid)
-    clock.mark("clique")
+    clique_mask = _clique_from_pairs(sc.pair_mask, n, params, valid, clock)
     sol = rotation_translation_stage(src, dst, sc.scale, clique_mask, params, stage_ms)
     return sol._replace(scale_pair_mask=sc.pair_mask)
 

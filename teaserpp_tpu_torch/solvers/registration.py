@@ -13,7 +13,7 @@ subsystem of ``clique/graph.py``; inputs and results are numpy.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,6 +31,7 @@ from teaserpp_tpu_torch.params import (
 from teaserpp_tpu_torch.solvers import pipeline as _pipe
 from teaserpp_tpu_torch.solvers.translation import solve_translation_tls
 from teaserpp_tpu_torch.utils.diagnostics import debug_error_msg
+from teaserpp_tpu_torch.utils.geometry import PointCloud
 from teaserpp_tpu_torch.utils.timing import StageTimer
 
 
@@ -461,8 +462,13 @@ class RobustRegistrationSolver:
     dst_tims_map_for_rotation = property(getDstTIMsMapForRotation)
 
 
-def _gather_correspondences(cloud, correspondences, side: int) -> np.ndarray:
-    """Gather correspondence endpoints into a 3xK matrix (registration.cc:557-564)."""
+def _gather_correspondences(cloud: Union[PointCloud, np.ndarray], correspondences,
+                            side: int) -> np.ndarray:
+    """Gather correspondence endpoints into a 3xK matrix (registration.cc:557-564).
+
+    ``cloud`` is a :class:`PointCloud` (read through its ``points``, (N, 3),
+    as any cloud object with that attribute) or an (N, 3) or (3, N) array.
+    """
     pts = np.asarray(getattr(cloud, "points", cloud), dtype=np.float64)
     if pts.ndim == 2 and pts.shape[0] != 3 and pts.shape[1] == 3:
         pts = pts.T

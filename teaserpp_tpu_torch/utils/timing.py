@@ -2,8 +2,8 @@
 
 Counterpart of ``teaserpp_tpu/utils/timing.py``'s ``StageTimer``: wall times
 collected around host-visible stage boundaries, the device synchronised at
-each boundary that names it. (``trace_to``, the profiler hook, is not ported
-yet: ROADMAP queue 1, item 9.)
+each boundary that names it; and ``trace_to``, a ``torch.profiler`` trace
+of a block, the counterpart of the JAX package's ``jax.profiler`` hook.
 """
 
 from __future__ import annotations
@@ -46,3 +46,24 @@ class StageTimer:
 
     def as_dict(self) -> Dict[str, float]:
         return dict(self.durations)
+
+
+@contextlib.contextmanager
+def trace_to(log_dir: Optional[str]):
+    """Record a ``torch.profiler`` trace of the block into ``log_dir``; a
+    no-op when ``log_dir`` is empty or None.
+
+    CPU activity always, CUDA activity where a card is present; the trace
+    lands in ``log_dir`` as TensorBoard's ``*.pt.trace.json`` (a Chrome
+    trace). It records what runs and adds no spans of its own.
+    """
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

@@ -134,7 +134,8 @@ def test_seeds_that_finish_at_different_steps_keep_their_state():
     seeds = torch.tensor([11, 12, 1, 2, 0])
     core = torch.from_numpy(np.array(jkcore.core_numbers(jnp.asarray(adj))))
     members = theu._greedy_from_seed(
-        seeds, torch.from_numpy(adj), core, torch.zeros((), dtype=torch.bool)).numpy()
+        seeds[None], torch.from_numpy(adj)[None], core[None],
+        torch.zeros((1,), dtype=torch.bool))[0].numpy()
     assert members[:, 0].tolist() == [False, False, False, False, True]
     assert members.sum(axis=1).tolist() == [3, 3, 9, 9, 1]
     ref, got = _both(adj, num_seeds=n)  # every vertex a seed, isolated ones too

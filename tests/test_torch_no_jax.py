@@ -1,6 +1,7 @@
 """The port stands alone: no import of JAX or of the JAX package, CPU solves
-(batched known and unknown scale, huge-N, exact, the facade) with JAX
-blocked, its own native clique library, and no silent fallback to the CPU."""
+(batched known and unknown scale, the batched greedy clique, huge-N, exact,
+the facade, ICP) and PLY I/O with JAX blocked, its own native clique
+library, and no silent fallback to the CPU."""
 
 import ast
 import pathlib
@@ -20,6 +21,7 @@ from teaserpp_tpu_torch import (
 )
 from teaserpp_tpu_torch.clique.graph import MaxCliqueSolver
 from teaserpp_tpu_torch.device import resolve_device
+from teaserpp_tpu_torch.solvers.icp import icp_point_to_point
 
 torch.set_num_threads(1)
 
@@ -69,6 +71,21 @@ for res in (large, exact):
 assert int(exact.clique_size) >= int(large.clique_size)
 scaled = solve_batch(src, 1.5 * dst, params.replace(estimate_scaling=True), device="cpu")
 assert np.abs(scaled.scale.numpy() - 1.5).max() < 1e-2
+greedy = solve_batch(src, dst, params.replace(
+    inlier_selection_mode=InlierSelectionMode.PMC_HEU), device="cpu")
+assert np.abs(greedy.rotation.numpy() - np.eye(3)).max() < 1e-2
+assert greedy.clique_mask.sum(-1).min() >= 40
+
+import tempfile
+from teaserpp_tpu_torch.io import read_ply, write_ply
+from teaserpp_tpu_torch.solvers.icp import icp_point_to_point
+from teaserpp_tpu_torch.utils.geometry import PointCloud
+with tempfile.TemporaryDirectory() as tmp:
+    write_ply(tmp + "/c.ply", PointCloud(src[0].T))
+    cloud = read_ply(tmp + "/c.ply")
+assert np.allclose(cloud.as_matrix(), src[0], atol=1e-6)
+icp = icp_point_to_point(cloud.as_matrix(), src[0] + 0.01, 0.05, device="cpu")
+assert np.abs(icp.translation.numpy() - 0.01).max() < 1e-4
 facade = RobustRegistrationSolver(noise_bound=0.001, rotation_cost_threshold=0.005,
                                   device="cpu")
 sol = facade.solve(src[0], 1.5 * dst[0])
@@ -119,6 +136,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
     for solve in (solve_large_sharded, solve_large_exact):
         with pytest.raises(RuntimeError, match="CUDA"):
             solve(np.zeros((3, 8)), np.zeros((3, 8)), params, device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        icp_point_to_point(np.zeros((3, 8)), np.zeros((3, 8)), 0.1)
     for build in (lambda: RobustRegistrationSolver(params), MaxCliqueSolver):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()

@@ -3,7 +3,8 @@ against the JAX package's ``solve_batch`` on the known-scale KCORE_HEU
 threshold-0 path (bench.py's parameters), and ``register_batch`` against
 JAX's on the unknown-scale path (scripts/bench_scale_est.py's recipe) in
 NONE and KCORE_HEU threshold-0 modes, at a small size with one padded
-problem."""
+problem. The other inlier-selection modes are held against JAX in
+test_torch_clique_modes.py and test_torch_clique_modes_scale.py."""
 
 import dataclasses
 
@@ -121,22 +122,6 @@ def test_mismatched_shapes_raise(batch):
         solve_batch(src, dst[:, :, :100], params, device="cpu")
     with pytest.raises(ValueError, match="3, N"):
         solve_batch(src[:, :2], dst[:, :2], params, device="cpu")
-
-
-@pytest.mark.parametrize("change", [
-    dict(estimate_scaling=True, kcore_heuristic_threshold=0.5),
-    dict(kcore_heuristic_threshold=0.5),
-    dict(inlier_selection_mode=tparams.InlierSelectionMode.PMC_HEU),
-    dict(estimate_scaling=True, inlier_selection_mode=tparams.InlierSelectionMode.PMC_EXACT),
-])
-def test_unported_modes_raise(batch, change):
-    """Batched selection other than NONE and KCORE_HEU at threshold 0 needs a
-    problem-batched greedy clique, not ported yet; unknown scale, FGR and
-    Quatro are ported (below and in test_torch_scale.py)."""
-    src, dst, valid, _, _ = batch
-    params = params_from_jax(BENCH_PARAMS).replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_batch(src, dst, params, valid, device="cpu")
 
 
 def _scaled_problem(rng, n, s, outlier_frac=0.6, nb=0.01):
