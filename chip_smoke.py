@@ -89,11 +89,45 @@ Phases, in order; any failure raises and the script exits non-zero:
 15. ICP: ``icp_point_to_point`` on the bunny-shaped cloud against its
     transformed copy (noise +-nb/2), started from the facade demo's result
     turned by 2 degrees and shifted by 5 mm; gated on <0.1 deg, and the CPU
-    run within 1e-5.
+    run within 1e-5;
+16. the FPFH front end at full width (``fpfh_frontend``): scripts/
+    bench_frontend_e2e.py's synth100k pair (100,000 points uniform in
+    [-1, 1]^3 and a rigid copy with noise 0.003; radii 0.05 and 0.10):
+    ``build_neighbor_plans`` on the host, ``estimate_normals_pruned`` and
+    ``compute_fpfh_pruned`` of both clouds (descriptors left on the card),
+    ``Matcher`` with cross-check, then ``solve_large_sharded`` (KCORE_HEU
+    at threshold 0, noise bound 0.01); gated on <0.1 deg and <0.01 m
+    against the planted transform. At synth100k's ~13K matches the solve
+    takes its dense branch (N <= 16,384, as in JAX), which launches no
+    kernel, so the phase requires none (K1 above 16,384); prints the
+    correspondence and clique counts beside the JAX package's, seconds per
+    stage (best of 3 after a first run), peak memory, and one more run of
+    the stages up to the matches under ``torch.profiler`` (busy time, idle
+    share, top kernels, each stage's host and kernel time);
+17. front-end parity: the matcher's NN of the first 8,192 source
+    descriptors among all 100,000 target descriptors equals a plain exact NN
+    by direct differences on the card; at N=8,192 (the synth100k density)
+    the grid route's normals on the card and on the CPU lie within the tests'
+    float32 bound of the float64 run, their SPFH counts (shared normals)
+    differ on at most 5% of the rows and the FPFH of rows away from those
+    within 2e-3; the matcher's correspondences on the card equal the CPU's;
+18. the FPFH facade, TEASER and ICP (examples/fpfh_icp_registration.py's
+    flow) on the wavy patch of tests/test_features.py at 64 x 64 points,
+    z + 3, turned 0.25 rad and shifted: ``FPFHEstimation()`` (radii 0.1,
+    0.16; dense at this size), ``Matcher``, ``RobustRegistrationSolver``
+    (PMC_EXACT, noise bound 0.05), ``icp_point_to_point``; gated on >80% of
+    the correspondences the identity, TEASER within 0.05 rad and 0.05, ICP
+    <0.01 deg;
+19. the CLI: ``python -m teaserpp_tpu_torch.cli`` in a subprocess on PLY
+    files of phase 18's clouds with ``--fpfh`` (phase 18's TEASER gate) and
+    of phase 10's problem without it (phase 10's clique size, <0.1 deg,
+    <0.01 m), then the ``--fpfh`` call through ``cli.main`` in this
+    process for its launch counts.
 
-Phases 10-12 and 15 run no TRIM kernel (as in the JAX package, their route
-reaches no Pallas kernel): each sets the launch counts to 0 before and
-requires them to read 0 after. Then one ``{"kernels": [...]}`` line and,
+Phases 10-12, 15, 18 and 19 run no TRIM kernel (as in the JAX package,
+their route reaches no Pallas kernel): each sets the launch counts to 0
+before and requires them to read 0 after. Then one ``{"kernels": [...]}``
+line and,
 last, the device line. Without CUDA, or without the package beside it, it
 exits non-zero and prints no result.
 """
@@ -142,6 +176,22 @@ ICP_START_DEG = 2.0  # the ICP phase's start: the demo's result turned and shift
 ICP_START_M = 0.005
 ICP_MAX_DISTANCE = 0.02
 ICP_PARITY_TOL = 1e-5
+# The front end: scripts/bench_frontend_e2e.py's synth100k pair (:254-258)
+FRONTEND_N = 100_000
+FRONTEND_SEED = 11
+FRONTEND_NOISE = 0.003
+FRONTEND_RADII = (0.05, 0.10)
+FRONTEND_NOISE_BOUND = 0.01
+# what the JAX package found on that pair (PERFORMANCE.md:455-459): counts only
+JAX_FRONTEND_CORRESPONDENCES = 12_935
+JAX_FRONTEND_CLIQUE = 1_732
+FRONTEND_PARITY_QUERIES = 8192
+FRONTEND_PARITY_N = 8192
+# The facade phase's wavy patch (tests/test_features.py:371-374) at 64 x 64
+PATCH_M = 64
+PATCH_SEED = 12345
+PATCH_RADII = (0.1, 0.16)
+PATCH_NOISE_BOUND = 0.05
 
 # H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s HBM3; 67 TFLOP/s float32
 # outside the tensor cores, counting an FMA as two operations, so 33.5e12
@@ -962,8 +1012,9 @@ def large_parity_phase(device, n: int):
 
 
 def _require_no_launch(launches: dict, path: str) -> None:
-    """The facade and unknown-scale routes reach no TRIM kernel, as in the
-    JAX package: a launch there means the route changed."""
+    """A route that reaches no TRIM kernel, as in the JAX package (the
+    facade, the unknown-scale batch, the front end at <= 16,384 matches): a
+    launch there means the route changed."""
     if any(launches.values()):
         raise AssertionError(f"{path} launched a TRIM kernel: {launches}")
 
@@ -1284,12 +1335,14 @@ def clique_batch_phase(device, src, dst, top_core_masks, repeats: int = 3):
     )
 
 
-def device_busy_phase(device, fn, top: int = 8) -> dict:
+def device_busy_phase(device, fn, top: int = 8, ranges: str = "") -> dict:
     """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA activity):
     wall time, the summed device time of its kernels (one stream, so they do
     not overlap), the idle share that leaves, the kernel count and the
-    kernels that took the most device time. A profiler that records no
-    device time is reported as such ("not measured"), not as an idle card."""
+    kernels that took the most device time; with ``ranges``, the host and
+    device time of each ``record_function`` range whose name starts so. A
+    profiler that records no device time is reported as such ("not
+    measured"), not as an idle card."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1301,7 +1354,11 @@ def device_busy_phase(device, fn, top: int = 8) -> dict:
         fn()
         _sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    # a record_function range also shows on the device's timeline, as a span
+    # and not a kernel: those entries are not counted as busy time
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA
+               and not (ranges and e.key.startswith(ranges))]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", 0) or getattr(e, "device_time_total", 0)
@@ -1310,12 +1367,26 @@ def device_busy_phase(device, fn, top: int = 8) -> dict:
     if busy_ms <= 0:
         return dict(wall_ms=wall_ms, device_busy_ms="not measured", idle_share="not measured")
     kernels.sort(key=dev_us, reverse=True)
-    return dict(
+    out = dict(
         wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
         kernel_launches=int(sum(e.count for e in kernels)),
         top_kernels=[dict(name=e.key[:90], launches=int(e.count), ms=dev_us(e) / 1e3)
                      for e in kernels[:top]],
     )
+    if ranges:
+        # a range's host entry holds its wall time on the host and the device
+        # time of the kernels launched inside it; its device entry, the span
+        # from its first kernel's start to its last kernel's end
+        out["ranges"] = {}
+        for e in averages:
+            if e.key.startswith(ranges):
+                r = out["ranges"].setdefault(e.key, {})
+                if e.device_type == DeviceType.CUDA:
+                    r["device_span_ms"] = dev_us(e) / 1e3
+                else:
+                    r.update(host_ms=e.cpu_time_total / 1e3,
+                             kernel_ms=getattr(e, "device_time_total", 0) / 1e3)
+    return out
 
 
 def clique_parity_phase(src, dst, sol_dev) -> dict:
@@ -1458,6 +1529,438 @@ def icp_phase(device, demo: dict) -> dict:
     return out
 
 
+def rigid_copy(pts, rng, noise):
+    """scripts/bench_frontend_e2e.py's rigid_copy: a uniform random proper
+    rotation, t uniform in [-1, 1]^3, Gaussian noise of sd noise / 3.
+    Returns (copy (N, 3), R, t)."""
+    q, r_ = np.linalg.qr(rng.standard_normal((3, 3)))
+    q *= np.sign(np.diag(r_))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    t = rng.uniform(-1, 1, 3)
+    dst = pts @ q.T + t + rng.normal(scale=noise / 3, size=pts.shape)
+    return dst, q, t
+
+
+def make_frontend_pair(n: int, seed: int = FRONTEND_SEED, half_width: float = 1.0):
+    """The synth100k pair (scripts/bench_frontend_e2e.py:254-258): n points
+    uniform in [-w, w]^3 and their rigid copy with noise 0.003."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-half_width, half_width, (n, 3))
+    dst, r, t = rigid_copy(pts, rng, FRONTEND_NOISE)
+    return pts, dst, r, t
+
+
+def frontend_params():
+    from teaserpp_tpu_torch.params import InlierSelectionMode, RobustRegistrationSolverParams
+
+    return RobustRegistrationSolverParams(
+        noise_bound=FRONTEND_NOISE_BOUND, estimate_scaling=False,
+        inlier_selection_mode=InlierSelectionMode.KCORE_HEU, kcore_heuristic_threshold=0.0)
+
+
+def frontend_match(device, src, dst, stages: dict):
+    """scripts/bench_frontend_e2e.py:77-110 on the port: plans (host), normals
+    and FPFH of both clouds (left on the card), then the matcher with
+    cross-check. Each stage is a ``frontend.*`` profiler range and adds its
+    seconds to ``stages``. Returns (correspondences, descriptors, plans)."""
+    from torch.profiler import record_function
+    from teaserpp_tpu_torch.features import (
+        Matcher, build_neighbor_plans, compute_fpfh_pruned, estimate_normals_pruned)
+
+    t0 = time.perf_counter()
+    with record_function("frontend.plans"):
+        plans = [build_neighbor_plans(c, FRONTEND_RADII) for c in (src, dst)]
+    t1 = time.perf_counter()
+    stages["plans"] = t1 - t0
+    xs = [c.astype(np.float32) for c in (src, dst)]
+    with record_function("frontend.normals"):
+        nres = [estimate_normals_pruned(x, FRONTEND_RADII[0], p[0], device=device)
+                for x, p in zip(xs, plans)]
+        _sync(device)
+    t2 = time.perf_counter()
+    stages["normals"] = t2 - t1
+    with record_function("frontend.fpfh"):
+        desc = [compute_fpfh_pruned(x, r.normals, FRONTEND_RADII[1], p[1], device=device)
+                for x, r, p in zip(xs, nres, plans)]
+        _sync(device)
+    t3 = time.perf_counter()
+    stages["fpfh"] = t3 - t2
+    with record_function("frontend.matcher"):
+        corr = Matcher(device=device).calculateCorrespondences(
+            src, dst, desc[0], desc[1], False, True, False, 0.95)
+    stages["matcher"] = time.perf_counter() - t3
+    return corr, desc, plans
+
+
+def frontend_run(device, src, dst):
+    """scripts/bench_frontend_e2e.py:77-128 on the port: ``frontend_match``,
+    then ``solve_large_sharded`` on the matched points. Returns (stage
+    seconds, correspondences, descriptors, correspondence points, result,
+    plans)."""
+    from teaserpp_tpu_torch import solve_large_sharded
+
+    stages = {}
+    t0 = time.perf_counter()
+    corr, desc, plans = frontend_match(device, src, dst, stages)
+    t1 = time.perf_counter()
+    ci, cj = np.asarray(corr, np.int64).T
+    src_c = np.ascontiguousarray(src[ci].T).astype(np.float32)
+    dst_c = np.ascontiguousarray(dst[cj].T).astype(np.float32)
+    res = solve_large_sharded(src_c, dst_c, frontend_params(), device=device)
+    _sync(device)
+    stages["solve"] = time.perf_counter() - t1
+    stages["total"] = time.perf_counter() - t0
+    return stages, corr, desc, (src_c, dst_c), res, plans
+
+
+def _frontend_gate(name, res, r_true, t_true) -> dict:
+    from teaserpp_tpu_torch.convert import large_result_to_numpy
+    from teaserpp_tpu_torch.utils.metrics import rotation_error_deg, translation_error
+
+    r = large_result_to_numpy(res)
+    sol = r.solution
+    out = dict(rot_err_deg=rotation_error_deg(np.asarray(sol.rotation, np.float64), r_true),
+               trans_err_m=translation_error(np.asarray(sol.translation, np.float64), t_true),
+               clique_size=int(r.clique_size), max_core=int(r.max_core),
+               gnc_iterations=int(sol.rotation_iterations))
+    if not (np.isfinite(sol.rotation).all() and np.isfinite(sol.translation).all()
+            and out["rot_err_deg"] < 0.1 and out["trans_err_m"] < 0.01):
+        raise AssertionError(f"front-end gate failed ({name}): {out}")
+    return out
+
+
+def frontend_phase(device, n: int = FRONTEND_N, repeats: int = 3):
+    """Phase 16: the front end at full width, gated on <0.1 deg and <0.01 m
+    against the planted transform."""
+    import torch
+    from teaserpp_tpu_torch import solve_large_sharded
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+
+    src, dst, r_true, t_true = make_frontend_pair(n)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    first, corr, desc, (src_c, dst_c), res, plans = frontend_run(device, src, dst)
+    launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+    # solve_large_sharded takes its bit-word branch (K1) only above
+    # blocked_threshold = 16,384 matches, in JAX as here (sharded.py:67); at
+    # synth100k's ~13K the dense branch runs and no kernel is launched
+    k = len(corr)
+    if k > 16384:
+        _require_launched(device, launches, "fpfh_frontend", ["trim_bits"])
+    else:
+        _require_no_launch(launches, "fpfh_frontend")
+    gate = _frontend_gate("synth100k", res, r_true, t_true)
+
+    runs = [frontend_run(device, src, dst)[0] for _ in range(repeats)]
+    best = min(runs, key=lambda s: s["total"])
+    # one synchronised solve for its stage times
+    stage_ms = {}
+    solve_large_sharded(src_c, dst_c, frontend_params(), device=device, stage_ms=stage_ms)
+    desc_src, desc_dst = desc
+    out = dict(
+        n=n, radii=list(FRONTEND_RADII), noise_bound=FRONTEND_NOISE_BOUND,
+        normal_plan_mpad=plans[0][0].mpad, fpfh_plan_mpad=plans[0][1].mpad,
+        correspondences=k, jax_correspondences=JAX_FRONTEND_CORRESPONDENCES,
+        jax_clique_size=JAX_FRONTEND_CLIQUE, **gate,
+        solve_stage_ms=stage_ms,
+        identity_share=float(np.mean([i == j for i, j in corr])),
+        first_run_s=first, best_run_s=best,
+        best_stage_s={s: min(r[s] for r in runs) for s in best},
+        total_s_all=[r["total"] for r in runs],
+        peak_memory_gb=peak, launches=launches,
+    )
+    return out, desc_src, desc_dst
+
+
+def plain_nn(queries, database, chunk: int = 256):
+    """Exact nearest neighbour by direct differences, ties to the lowest
+    index, in query chunks: per query the squared differences summed left to
+    right over the descriptor axis (matcher.squared_distance's order), after
+    the matcher's mean-centring."""
+    import torch
+
+    center = torch.mean(database, dim=0)
+    q = queries - center
+    db = database - center
+    out = []
+    for s in range(0, q.shape[0], chunk):
+        d = q[s:s + chunk, None, 0] - db[None, :, 0]
+        acc = d * d
+        for k in range(1, q.shape[1]):
+            d = q[s:s + chunk, None, k] - db[None, :, k]
+            acc = acc + d * d
+        out.append(torch.argmin(acc, dim=1))
+    return torch.cat(out)
+
+
+def _normal_bounds(pts, radius, plan):
+    """Per-row float32 bound of tests/test_torch_features.py: 64 eps32
+    lambda_max / (lambda_1 - lambda_0) from the float64 covariances."""
+    import torch
+    from teaserpp_tpu_torch.features import normals as tn
+
+    cpu = torch.device("cpu")
+    sp = tn.sorted_on_device(pts, plan, 1e12, cpu, torch.float64)
+    rows = tn.query_rows(plan, cpu)
+    ci = torch.as_tensor(plan.cand_idx).long()
+    r2 = tn._r2_grid(radius, torch.float64, cpu)
+    cov = torch.cat([tn._moments(sp[rows[s.start:s.stop]], sp[ci[s.start:s.stop]], r2)[0]
+                     for s in tn.block_steps(plan)])[: plan.n][torch.as_tensor(plan.inv)]
+    lam = np.linalg.eigvalsh(cov.numpy())
+    return 64 * np.finfo(np.float32).eps * lam[:, 2] / np.maximum(lam[:, 1] - lam[:, 0], 1e-300)
+
+
+def _spfh_counts(device, pts32, normals, plan):
+    """(SPFH (n, 33), neighbour counts) of the grid route on ``device``."""
+    import torch
+    from teaserpp_tpu_torch.features import fpfh as tf
+    from teaserpp_tpu_torch.features import normals as tn
+
+    sp = tn.sorted_on_device(pts32, plan, 1e12, device, torch.float32)
+    sn = tn.sorted_on_device(normals, plan, 0.0, device, torch.float32)
+    rows = tn.query_rows(plan, device)
+    ci = torch.as_tensor(plan.cand_idx, device=device).long()
+    r2 = tn._r2_grid(plan.radius, torch.float32, device)
+    spfh = tf._spfh_sorted(sp, sn, rows, ci, r2, tn.block_steps(plan))[: plan.n]
+    return spfh[torch.as_tensor(plan.inv, device=device)].cpu().numpy()
+
+
+def frontend_parity_phase(device, desc_src, desc_dst, n: int = FRONTEND_PARITY_N,
+                          queries: int = FRONTEND_PARITY_QUERIES) -> dict:
+    """Phase 17: (a) the matcher's NN of the first source descriptors among
+    all target descriptors equals the plain exact NN on the card; (b) at
+    N=8,192 with the grid route, the card's normals and (with shared
+    normals) SPFH and FPFH hold to the port's CPU run within the tests'
+    float32 tolerances; (c) the matcher's correspondences on the card equal
+    the CPU's for the same descriptors."""
+    import torch
+    from teaserpp_tpu_torch.features import (
+        Matcher, build_neighbor_plans, compute_fpfh_pruned, estimate_normals_pruned)
+    from teaserpp_tpu_torch.features.matcher import _nn_indices
+
+    cpu = torch.device("cpu")
+    q = desc_src[:queries].to(torch.float32)
+    db = desc_dst.to(torch.float32)
+    t0 = time.perf_counter()
+    got = _nn_indices(q, db)
+    _sync(device)
+    nn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = plain_nn(q, db)
+    _sync(device)
+    plain_s = time.perf_counter() - t0
+    out = dict(nn_queries=int(q.shape[0]), nn_database=int(db.shape[0]),
+               nn_equal_plain=bool(torch.equal(got, want)),
+               nn_differing=int((got != want).sum()), nn_s=nn_s, plain_nn_s=plain_s)
+
+    # (b) a cloud of the synth100k density, grid route forced
+    pts, moved, _, _ = make_frontend_pair(n, seed=FRONTEND_SEED + 1, half_width=0.4)
+    x = pts.astype(np.float32)
+    plans = build_neighbor_plans(pts, FRONTEND_RADII)
+    card = estimate_normals_pruned(x, FRONTEND_RADII[0], plans[0], device=device)
+    host = estimate_normals_pruned(x, FRONTEND_RADII[0], plans[0], device=cpu)
+    ref64 = estimate_normals_pruned(pts, FRONTEND_RADII[0], plans[0], device=cpu)
+    bound = _normal_bounds(pts, FRONTEND_RADII[0], plans[0])
+    ok = ref64.valid.numpy()
+    worst = 0.0
+    for res in (card, host):
+        err = np.linalg.norm(res.normals.cpu().double().numpy() - ref64.normals.numpy(), axis=1)
+        worst = max(worst, float((err[ok] / bound[ok]).max()))
+    valid_equal = bool(np.array_equal(card.valid.cpu().numpy(), host.valid.numpy()))
+
+    shared = host.normals
+    s_card = _spfh_counts(device, x, shared.to(device), plans[1])
+    s_host = _spfh_counts(cpu, x, shared, plans[1])
+    nbr = np.zeros((n, n), bool)
+    for s in range(0, n, 512):
+        d = pts[s:s + 512, None, :] - pts[None, :, :]
+        nbr[s:s + 512] = (d * d).sum(-1) <= FRONTEND_RADII[1] ** 2
+    cnt = np.maximum(nbr.sum(1) - 1, 1)[:, None] / 100.0
+    differ = (np.round(s_card * cnt) != np.round(s_host * cnt)).any(1)
+    f_card = compute_fpfh_pruned(x, shared.to(device), FRONTEND_RADII[1], plans[1],
+                                 device=device).cpu().numpy()
+    f_host = compute_fpfh_pruned(x, shared, FRONTEND_RADII[1], plans[1], device=cpu).numpy()
+    clean = ~(nbr & differ[None, :]).any(1)
+    fpfh_err = float(np.abs(f_card - f_host)[clean].max())
+    out.update(grid_n=n, valid_equal=valid_equal, normals_err_over_bound_max=worst,
+               spfh_rows_differing_share=float(differ.mean()), fpfh_clean_rows=float(clean.mean()),
+               fpfh_clean_max_abs_err=fpfh_err)
+
+    # (c) the matcher on both devices, the same (CPU) descriptors
+    plans_m = build_neighbor_plans(moved, FRONTEND_RADII)
+    nm = estimate_normals_pruned(moved.astype(np.float32), FRONTEND_RADII[0], plans_m[0],
+                                 device=cpu)
+    f_moved = compute_fpfh_pruned(moved.astype(np.float32), nm.normals, FRONTEND_RADII[1],
+                                  plans_m[1], device=cpu).numpy()
+    c_card = Matcher(device=device).calculateCorrespondences(pts, moved, f_host, f_moved)
+    c_host = Matcher(device=cpu).calculateCorrespondences(pts, moved, f_host, f_moved)
+    out.update(correspondences=len(c_card), correspondences_equal=c_card == c_host)
+    if not (out["nn_equal_plain"] and valid_equal and worst <= 1.0
+            and out["spfh_rows_differing_share"] <= 0.05 and out["fpfh_clean_rows"] > 0.8
+            and fpfh_err <= 2e-3 and out["correspondences_equal"]):
+        raise AssertionError(f"front-end parity failed: {out}")
+    return out
+
+
+def make_patch(m: int = PATCH_M, seed: int = PATCH_SEED):
+    """tests/test_features.py:371-374's wavy patch at m x m points, z + 3,
+    turned 0.25 rad about a seeded axis and shifted by (0.4, -0.3, 0.25).
+    Returns (src (N, 3), dst (N, 3), R, t)."""
+    rng = np.random.default_rng(seed)
+    xs, ys = np.meshgrid(np.linspace(-1, 1, m), np.linspace(-1, 1, m))
+    zs = 0.3 * np.sin(2.5 * xs) * np.cos(1.5 * ys) + 0.1 * np.sin(5 * xs * ys)
+    src = np.stack([xs.ravel(), ys.ravel(), zs.ravel() + 3.0], axis=1)
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    r = np.eye(3) + np.sin(0.25) * kx + (1 - np.cos(0.25)) * (kx @ kx)
+    t = np.array([0.4, -0.3, 0.25])
+    return src, src @ r.T + t, r, t
+
+
+def patch_params():
+    from teaserpp_tpu_torch.params import InlierSelectionMode, RobustRegistrationSolverParams
+
+    return RobustRegistrationSolverParams(noise_bound=PATCH_NOISE_BOUND, estimate_scaling=False,
+                                          inlier_selection_mode=InlierSelectionMode.PMC_EXACT)
+
+
+def _teaser_gate(name, rotation, translation, r_true, t_true) -> dict:
+    rot = np.asarray(rotation, np.float64)
+    ang = float(np.arccos(np.clip((np.trace(rot.T @ r_true) - 1) / 2, -1, 1)))
+    out = dict(rot_err_rad=ang, trans_err=float(np.linalg.norm(np.asarray(translation) - t_true)))
+    if not (np.isfinite(rot).all() and ang < 0.05 and out["trans_err"] < 0.05):
+        raise AssertionError(f"{name}: TEASER gate failed: {out}")
+    return out
+
+
+def facade_icp_phase(device, repeats: int = 2) -> dict:
+    """Phase 18: FPFHEstimation (auto: dense at 4,096 points), the matcher,
+    RobustRegistrationSolver (PMC_EXACT) and ICP from its result
+    (examples/fpfh_icp_registration.py's flow on the wavy patch); no TRIM
+    kernel on this route."""
+    from teaserpp_tpu_torch import RobustRegistrationSolver
+    from teaserpp_tpu_torch.features import FPFHEstimation, Matcher
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+    from teaserpp_tpu_torch.solvers.icp import icp_point_to_point
+    from teaserpp_tpu_torch.utils.geometry import PointCloud
+    from teaserpp_tpu_torch.utils.metrics import rotation_error_deg
+
+    src, dst, r_true, t_true = make_patch()
+
+    def run():
+        stages = {}
+        t0 = time.perf_counter()
+        fp = FPFHEstimation(device=device)
+        sf = fp.computeFPFHFeatures(src, *PATCH_RADII)
+        df = fp.computeFPFHFeatures(dst, *PATCH_RADII)
+        t1 = time.perf_counter()
+        corr = Matcher(device=device).calculateCorrespondences(src, dst, sf, df, False, True,
+                                                               False, 0.95)
+        t2 = time.perf_counter()
+        solver = RobustRegistrationSolver(patch_params(), device=device)
+        sol = solver.solve(PointCloud(src), PointCloud(dst), corr)
+        t3 = time.perf_counter()
+        icp = icp_point_to_point(src.T.astype(np.float32), dst.T.astype(np.float32),
+                                 PATCH_NOISE_BOUND, r_init=sol.rotation, t_init=sol.translation,
+                                 max_iterations=100, device=device)
+        _sync(device)
+        t4 = time.perf_counter()
+        stages.update(fpfh=t1 - t0, matcher=t2 - t1, teaser=t3 - t2, icp=t4 - t3, total=t4 - t0)
+        return stages, corr, sol, solver, icp
+
+    ck.reset_launches()
+    first, corr, sol, solver, icp = run()
+    launches = dict(ck.LAUNCHES)
+    _require_no_launch(launches, "the FPFH facade, TEASER and ICP")
+    r_icp = icp.rotation.cpu().double().numpy()
+    out = dict(
+        n=len(src), radii=list(PATCH_RADII), correspondences=len(corr),
+        identity_share=float(np.mean([i == j for i, j in corr])),
+        clique_size=len(solver.getInlierMaxClique()), valid=bool(sol.valid),
+        teaser=_teaser_gate("facade", sol.rotation, sol.translation, r_true, t_true),
+        icp_rot_err_deg=rotation_error_deg(r_icp, r_true),
+        icp_trans_err=float(np.linalg.norm(icp.translation.cpu().double().numpy() - t_true)),
+        icp_iterations=int(icp.iterations), first_run_s=first,
+        runs_s=[run()[0] for _ in range(repeats)], launches=launches,
+    )
+    if not (out["valid"] and out["identity_share"] > 0.8 and out["icp_rot_err_deg"] < 0.01):
+        raise AssertionError(f"FPFH facade + ICP gate failed: {out}")
+    return out
+
+
+def cli_phase(device, demo: dict) -> dict:
+    """Phase 19: ``python -m teaserpp_tpu_torch.cli`` as a subprocess on the
+    card, with --fpfh on phase 18's clouds (phase 18's TEASER gate) and
+    without on phase 10's problem (phase 10's clique); then the same --fpfh
+    call in this process, with the launch counts set to 0 before it."""
+    import contextlib
+    import io
+    import pathlib
+    import tempfile
+
+    from teaserpp_tpu_torch import cli
+    from teaserpp_tpu_torch.io import write_ply
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+    from teaserpp_tpu_torch.utils.geometry import PointCloud
+    from teaserpp_tpu_torch.utils.metrics import rotation_error_deg, translation_error
+
+    root = pathlib.Path(__file__).resolve().parent
+    src, dst, r_true, t_true = make_patch()
+    b_src, b_dst = make_problems(1, N_POINTS)
+
+    def run(argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "teaserpp_tpu_torch.cli", *argv],
+                              cwd=root, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli failed ({proc.returncode}): {proc.stderr[-3000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1]), time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, cloud in (("src", src), ("dst", dst), ("bsrc", b_src[0].T), ("bdst", b_dst[0].T)):
+            paths[name] = str(pathlib.Path(tmp) / f"{name}.ply")
+            write_ply(paths[name], PointCloud(cloud))
+        fpfh_argv = ["--src", paths["src"], "--dst", paths["dst"], "--fpfh",
+                     "--normal-search-radius", str(PATCH_RADII[0]),
+                     "--fpfh-search-radius", str(PATCH_RADII[1]),
+                     "--noise-bound", str(PATCH_NOISE_BOUND)]
+        fpfh, fpfh_s = run(fpfh_argv)
+        plain, plain_s = run(["--src", paths["bsrc"], "--dst", paths["bdst"],
+                              "--noise-bound", str(NOISE_BOUND),
+                              "--rotation-cost-threshold", "0.005"])
+        ck.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(fpfh_argv + ["--device", device.type])
+        launches = dict(ck.LAUNCHES)
+    _require_no_launch(launches, "the CLI")
+    in_process = json.loads(buf.getvalue().strip().splitlines()[-1])
+    out = dict(
+        fpfh=dict(_teaser_gate("cli --fpfh", fpfh["rotation"], fpfh["translation"], r_true,
+                               t_true), max_clique_size=fpfh["max_clique_size"],
+                  time_taken=fpfh["time_taken"], process_s=fpfh_s),
+        in_process=dict(rc=rc, **_teaser_gate("cli.main --fpfh", in_process["rotation"],
+                                              in_process["translation"], r_true, t_true),
+                        time_taken=in_process["time_taken"]),
+        plain=dict(max_clique_size=plain["max_clique_size"],
+                   facade_demo_clique_size=demo["clique_size"],
+                   rot_err_deg=rotation_error_deg(np.asarray(plain["rotation"]), T[:3, :3]),
+                   trans_err_m=translation_error(np.asarray(plain["translation"]), T[:3, 3]),
+                   time_taken=plain["time_taken"], process_s=plain_s),
+        launches=launches,
+    )
+    if not (fpfh["valid"] and plain["valid"] and rc == 0
+            and plain["max_clique_size"] == demo["clique_size"]
+            and out["plain"]["rot_err_deg"] < 0.1 and out["plain"]["trans_err_m"] < 0.01):
+        raise AssertionError(f"CLI gate failed: {out}")
+    return out
+
+
 def determinism_child() -> int:
     """One facade-defaults solve on the card; prints its hash (for the
     determinism phase's fresh processes)."""
@@ -1557,13 +2060,32 @@ def main() -> int:
     icp = icp_phase(device, demo)
     print(json.dumps({"icp": icp, "card": card}), flush=True)
 
+    frontend, desc_src, desc_dst = frontend_phase(device)
+    print(json.dumps({"fpfh_frontend": frontend, "card": card}), flush=True)
+    fe_src, fe_dst, _, _ = make_frontend_pair(FRONTEND_N)
+    # the profiled window ends at the matches: the solve after it is
+    # solve_large_sharded's, timed by its stage_ms above, and its ~110K small
+    # launches would cost the profiler a minute of processing
+    print(json.dumps({"fpfh_frontend_profile": device_busy_phase(
+        device, lambda: frontend_match(device, fe_src, fe_dst, {}), top=12,
+        ranges="frontend."), "card": card}), flush=True)
+    frontend_parity = frontend_parity_phase(device, desc_src, desc_dst)
+    print(json.dumps({"fpfh_frontend_parity": frontend_parity}), flush=True)
+    del desc_src, desc_dst
+    facade_icp = facade_icp_phase(device)
+    print(json.dumps({"fpfh_facade_icp": facade_icp, "card": card}), flush=True)
+    cli_run = cli_phase(device, demo)
+    print(json.dumps({"cli": cli_run, "card": card}), flush=True)
+
     # which shape's numbers stand at the top of each kernel's entry: the one
     # its path gives it
     paths = {"solve_batch": path["launches"], "solve_large_sharded": large["launches"],
              "solve_large_exact": exact["launches"], "public_kernel_ops": ops["launches"],
              "facade_demo": demo["launches"], "facade_defaults": defaults["launches"],
              "unknown_scale_batch": scale_batch["launches"],
-             "clique_mode_batch": clique["launches"], "icp": icp["launches"]}
+             "clique_mode_batch": clique["launches"], "icp": icp["launches"],
+             "fpfh_frontend": frontend["launches"], "fpfh_facade_icp": facade_icp["launches"],
+             "cli": cli_run["launches"]}
     entries = [
         ("trim_bits", "teaserpp_tpu_torch/csrc/trim_bits.cu",
          "teaserpp_tpu/ops/pallas_kernels.py:165", 0),

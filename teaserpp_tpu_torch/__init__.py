@@ -12,11 +12,14 @@ inlier-selection mode: the top k-core or the batched greedy clique), the
 huge-N single-problem solve on one device (``solve_large_sharded``,
 ``solve_large_exact``), point-to-point ICP (``solvers/icp.py``), PLY and PCD
 I/O (``io/``), batch results files (``parallel/results_io.py``), the point
-containers and helpers (``utils/``) and a profiler hook
-(``utils/timing.py::trace_to``). The three TPU kernels of the JAX package
-are hand-written CUDA kernels (``csrc/trim_bits.cu``,
-``csrc/trim_degrees.cu``, ``csrc/trim_adjacency.cu``; wrappers in
-``ops/cuda_kernels.py``).
+containers and helpers (``utils/``), a profiler hook
+(``utils/timing.py::trace_to``), the FPFH front end (``features/``: grid-hash
+neighbour plans, normals, FPFH descriptors and the exact-NN ``Matcher``;
+imported from ``teaserpp_tpu_torch.features``, as in the JAX package) and
+the command-line tool (``python -m teaserpp_tpu_torch.cli``). The three
+TPU kernels of the JAX package are hand-written CUDA kernels
+(``csrc/trim_bits.cu``, ``csrc/trim_degrees.cu``, ``csrc/trim_adjacency.cu``;
+wrappers in ``ops/cuda_kernels.py``).
 """
 
 from teaserpp_tpu_torch.params import (

@@ -1,7 +1,8 @@
 """The port stands alone: no import of JAX or of the JAX package, CPU solves
 (batched known and unknown scale, the batched greedy clique, huge-N, exact,
-the facade, ICP) and PLY I/O with JAX blocked, its own native clique
-library, and no silent fallback to the CPU."""
+the facade, ICP), PLY I/O and the FPFH front end, matcher and command-line
+tool with JAX blocked, its own native clique library, and no silent
+fallback to the CPU."""
 
 import ast
 import pathlib
@@ -21,6 +22,13 @@ from teaserpp_tpu_torch import (
 )
 from teaserpp_tpu_torch.clique.graph import MaxCliqueSolver
 from teaserpp_tpu_torch.device import resolve_device
+from teaserpp_tpu_torch.features import (
+    FPFHEstimation,
+    Matcher,
+    build_neighbor_plans,
+    compute_fpfh_pruned,
+    estimate_normals_pruned,
+)
 from teaserpp_tpu_torch.solvers.icp import icp_point_to_point
 
 torch.set_num_threads(1)
@@ -90,6 +98,35 @@ facade = RobustRegistrationSolver(noise_bound=0.001, rotation_cost_threshold=0.0
                                   device="cpu")
 sol = facade.solve(src[0], 1.5 * dst[0])
 assert sol.valid and abs(sol.scale - 1.5) < 1e-2 and len(facade.getInlierMaxClique()) >= 40
+
+# the FPFH front end (grid plans and the facade), the matcher and the CLI
+import contextlib, io, json
+from teaserpp_tpu_torch import cli
+from teaserpp_tpu_torch.features import (FPFHEstimation, Matcher, build_neighbor_plans,
+                                         compute_fpfh_pruned, estimate_normals_pruned)
+xs, ys = np.meshgrid(np.linspace(-1, 1, 16), np.linspace(-1, 1, 16))
+patch = np.stack([xs.ravel(), ys.ravel(), 0.3 * np.sin(2.5 * xs.ravel()) + 3.0], axis=1)
+moved = patch + np.array([0.2, -0.1, 0.05])
+plans = build_neighbor_plans(patch, (0.3, 0.45), block=64, pad_multiple=64)
+nres = estimate_normals_pruned(patch, 0.3, plans[0], device="cpu")
+desc = compute_fpfh_pruned(patch, nres.normals, 0.45, plans[1], device="cpu")
+assert desc.shape == (256, 33) and bool(torch.isfinite(desc).all())
+fp = FPFHEstimation(device="cpu")
+corr = Matcher(device="cpu").calculateCorrespondences(
+    patch, moved, fp.computeFPFHFeatures(patch, 0.3, 0.45),
+    fp.computeFPFHFeatures(moved, 0.3, 0.45), False, True, False, 0.0)
+assert np.mean([i == j for i, j in corr]) > 0.8
+with tempfile.TemporaryDirectory() as tmp:
+    write_ply(tmp + "/a.ply", PointCloud(patch))
+    write_ply(tmp + "/b.ply", PointCloud(moved))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["--src", tmp + "/a.ply", "--dst", tmp + "/b.ply", "--fpfh",
+                       "--normal-search-radius", "0.3", "--fpfh-search-radius", "0.45",
+                       "--noise-bound", "0.05", "--device", "cpu"])
+assert rc == 0
+res = json.loads(out.getvalue().strip().splitlines()[-1])
+assert res["valid"] and np.abs(np.asarray(res["translation"]) - [0.2, -0.1, 0.05]).max() < 1e-2
 assert "jaxlib" not in sys.modules
 
 # the exact search ran in the port's own library: nothing of the JAX package's
@@ -109,9 +146,9 @@ def _jax_native_dir_state():
 
 
 def test_cpu_solve_with_jax_blocked():
-    """Batched, huge-N and exact solves run with JAX and the JAX package
-    unimportable, and the exact search neither loads nor rebuilds the JAX
-    package's ``clique/native/libmaxclique.so``."""
+    """Batched, huge-N and exact solves, the front end and the CLI run with
+    JAX and the JAX package unimportable, and the exact search neither loads
+    nor rebuilds the JAX package's ``clique/native/libmaxclique.so``."""
     before = _jax_native_dir_state()
     proc = subprocess.run(
         [sys.executable, "-c", SOLVE_WITH_JAX_BLOCKED],
@@ -138,7 +175,14 @@ def test_default_device_raises_without_cuda(monkeypatch):
             solve(np.zeros((3, 8)), np.zeros((3, 8)), params, device=None)
     with pytest.raises(RuntimeError, match="CUDA"):
         icp_point_to_point(np.zeros((3, 8)), np.zeros((3, 8)), 0.1)
-    for build in (lambda: RobustRegistrationSolver(params), MaxCliqueSolver):
+    for build in (lambda: RobustRegistrationSolver(params), MaxCliqueSolver, Matcher,
+                  FPFHEstimation):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
+    pts = np.random.default_rng(0).uniform(size=(64, 3))
+    plans = build_neighbor_plans(pts, (0.3, 0.4), block=32, pad_multiple=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        estimate_normals_pruned(pts, 0.3, plans[0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compute_fpfh_pruned(pts, np.zeros((64, 3)), 0.4, plans[1])
     assert resolve_device("cpu") == torch.device("cpu")
