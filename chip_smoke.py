@@ -122,9 +122,32 @@ Phases, in order; any failure raises and the script exits non-zero:
     files of phase 18's clouds with ``--fpfh`` (phase 18's TEASER gate) and
     of phase 10's problem without it (phase 10's clique size, <0.1 deg,
     <0.01 m), then the ``--fpfh`` call through ``cli.main`` in this
-    process for its launch counts.
+    process for its launch counts;
+20. certify_e2e: scripts/bench_frontend_e2e.py::certify_saved's flow on the
+    two in-repo rotation-stage problems (``.e2e_cert_synth100k.npz``,
+    ``.e2e_cert_scene60k.npz``), float64 on the card: GNC-TLS over the
+    chain, a 150-TIM subset keeping every outlier, GNC again, then
+    ``certify_checkpointed`` (ITERATIVE, rank 128, 25-iteration segments,
+    20 rounds of 200; the checkpoint in a temporary directory). Gate: both
+    certified, synth100k with gap 0, scene60k with gap < 1e-3; prints
+    iterations (beside the JAX package's 75 and 2,331), seconds, ms per
+    iteration, saturation and peak memory. Then one 25-iteration segment of
+    scene60k under ``torch.profiler``: launches and host syncs per
+    iteration, idle share, top kernels, device time by operation;
+21. certify_batch: scripts/bench_certify.py's defaults (B=32, N=100, DENSE,
+    100 iterations): certs/s (best of 3 after a first run), the certified
+    count; gate: each lane equal to ``DRSCertifier.certify`` of its problem
+    alone (verdict, iteration count, trajectory within 1e-6 relative + 1e-8);
+22. certify_scale: the reference's large random instances
+    (certification-test.cc:530-644): ITERATIVE at N=1000 (npm 4004, rank
+    128), at N=499 (npm 2000) ITERATIVE (rank 96, <= 5 iterations) then
+    DENSE; gate: certified, gap <= 1e-5, not saturated;
+23. certify_parity: both modes at N=40 on the card and on the CPU (equal
+    verdict and iteration count, trajectories within the same tolerance),
+    and ``certify_checkpointed`` stopped after 2 segments and resumed on the
+    card: bit-identical to the uninterrupted run.
 
-Phases 10-12, 15, 18 and 19 run no TRIM kernel (as in the JAX package,
+Phases 10-12, 15 and 18-23 run no TRIM kernel (as in the JAX package,
 their route reaches no Pallas kernel): each sets the launch counts to 0
 before and requires them to read 0 after. Then one ``{"kernels": [...]}``
 line and,
@@ -1961,6 +1984,397 @@ def cli_phase(device, demo: dict) -> dict:
     return out
 
 
+# The certifier phases (20-23): scripts/bench_frontend_e2e.py::certify_saved's
+# flow on the front end's two rotation-stage problems, scripts/bench_certify.py's
+# batch, the reference's large random instances, CPU parity and resume
+CERT_FIXTURES = (("synth100k", 0), ("scene60k", 10))  # and their subset outliers
+CERT_TIMS = 150
+CERT_JAX_ITERATIONS = {"synth100k": 75, "scene60k": 2331}  # the JAX package's, on the CPU
+CERT_SEGMENT = 25
+CERT_PROFILE_ITERATIONS = 25
+CERT_BATCH = 32
+CERT_BATCH_N = 100
+CERT_BATCH_NOISE_BOUND = 0.01
+CERT_BATCH_ITERATIONS = 100
+CERT_TRAJ_RTOL = 1e-6  # tests/test_torch_certification.py's DENSE tolerance
+CERT_TRAJ_ATOL = 1e-8
+CERT_SCALE_N = 1000  # npm 4004
+CERT_SCALE_SMALL_N = 499  # npm 2000
+CERT_PARITY_N = 40
+CERT_PARITY_NOISE_BOUND = 0.03
+
+
+def _cert_gnc(device, v1, v2, nb):
+    """The port's float64 GNC-TLS on one problem -> (R, inliers, iterations) on the host."""
+    import torch
+    from teaserpp_tpu_torch.solvers.rotation import solve_rotation_gnc_tls
+
+    a, b = (torch.as_tensor(x, dtype=torch.float64, device=device)[None] for x in (v1, v2))
+    res = solve_rotation_gnc_tls(a, b, nb)
+    return (res.rotation[0].cpu().numpy(), res.inliers[0].cpu().numpy(),
+            int(res.iterations.reshape(-1)[0]))
+
+
+def cert_subset(device, name: str) -> dict:
+    """certify_saved's problem: GNC over the saved chain, every TLS outlier
+    and evenly spaced inliers up to 150 TIMs, GNC again on the subset."""
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / f".e2e_cert_{name}.npz"
+    with np.load(path) as z:
+        v1f, v2f, nb = z["v1"], z["v2"], float(z["nb_rot"])
+    _, th_full, chain_iters = _cert_gnc(device, v1f, v2f, nb)
+    out_idx, in_idx = np.nonzero(~th_full)[0], np.nonzero(th_full)[0]
+    keep_out = out_idx[: CERT_TIMS // 2]
+    n_in = min(CERT_TIMS - len(keep_out), len(in_idx))
+    keep_in = in_idx[np.linspace(0, len(in_idx) - 1, n_in).astype(int)]
+    sel = np.sort(np.concatenate([keep_in, keep_out]))
+    r, inl, sub_iters = _cert_gnc(device, v1f[:, sel], v2f[:, sel], nb)
+    return dict(v1=v1f[:, sel], v2=v2f[:, sel], rotation=r, theta=np.where(inl, 1.0, -1.0),
+                noise_bound=nb, chain_tims=v1f.shape[1], chain_outliers=len(out_idx),
+                gnc_iterations_chain=chain_iters, gnc_iterations_subset=sub_iters)
+
+
+def cert_e2e_params(nb: float):
+    from teaserpp_tpu_torch.params import DRSCertifierParams, EigSolverType
+
+    return DRSCertifierParams(noise_bound=nb, eig_decomposition_solver=EigSolverType.ITERATIVE,
+                              iterations_per_dispatch=CERT_SEGMENT, psd_projection_rank=128,
+                              max_iterations=200)
+
+
+def certify_e2e_phase(device) -> tuple:
+    """Phase 20: certify_saved's flow on both in-repo rotation-stage problems,
+    float64 on the card, the checkpoint in a temporary directory. Gate: both
+    certified, synth100k with gap 0, scene60k with gap < 1e-3."""
+    import pathlib
+    import tempfile
+
+    import torch
+    from teaserpp_tpu_torch.certification.drs import certify_checkpointed
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+
+    ck.reset_launches()
+    out, subsets = {}, {}
+    for name, subset_outliers in CERT_FIXTURES:
+        sub = subsets[name] = cert_subset(device, name)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            res = certify_checkpointed(
+                sub["rotation"], sub["v1"], sub["v2"], sub["theta"],
+                cert_e2e_params(sub["noise_bound"]),
+                checkpoint_path=str(pathlib.Path(tmp) / "ck.npz"), checkpoint_every=2,
+                rounds=20, device=device)
+            _sync(device)
+            seconds = time.perf_counter() - t0
+        iters = len(res.suboptimality_traj)
+        out[name] = dict(
+            chain_tims=sub["chain_tims"], chain_outliers=sub["chain_outliers"],
+            subset_tims=CERT_TIMS, subset_outliers=int((sub["theta"] < 0).sum()),
+            gnc_iterations_chain=sub["gnc_iterations_chain"],
+            gnc_iterations_subset=sub["gnc_iterations_subset"],
+            is_optimal=res.is_optimal, gap=res.best_suboptimality, iterations=iters,
+            jax_iterations=CERT_JAX_ITERATIONS[name], seconds=seconds,
+            ms_per_iteration=seconds * 1e3 / max(iters, 1), rank_saturated=res.rank_saturated,
+            peak_memory_gb=(torch.cuda.max_memory_allocated() / 1e9
+                            if device.type == "cuda" else None))
+        gap_ok = res.best_suboptimality == 0.0 if name == "synth100k" else \
+            res.best_suboptimality < 1e-3
+        if not (res.is_optimal and gap_ok and out[name]["subset_outliers"] == subset_outliers):
+            raise AssertionError(f"certify_e2e gate failed on {name}: {out[name]}")
+    out["launches"] = dict(ck.LAUNCHES)
+    _require_no_launch(out["launches"], "certify_e2e")
+    return out, subsets
+
+
+def certify_profile_phase(device, sub: dict) -> dict:
+    """Phase 20's profile: one 25-iteration ITERATIVE segment of scene60k
+    (iterations 25-50, after a warm first segment) under ``torch.profiler``:
+    wall and device time, idle share, launches and host syncs per iteration,
+    the top kernels, and the device time by operation."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from teaserpp_tpu_torch.certification import drs
+
+    params = cert_e2e_params(sub["noise_bound"])
+    args = [torch.as_tensor(sub[k], dtype=torch.float64, device=device)[None]
+            for k in ("rotation", "v1", "v2", "theta")]
+    state, consts = drs._iterative_init_batch(*args, params)
+    state = drs._iterative_segment_batch(state, consts, params, CERT_SEGMENT)
+    it0 = int(state[0][0])
+    end = it0 + CERT_PROFILE_ITERATIONS
+    drs._iterative_segment_batch(state, consts, params, end)  # warm
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        after = drs._iterative_segment_batch(state, consts, params, end)
+        _sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    iters = int(after[0][0]) - it0
+    averages = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "device_time_total", 0)
+
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("drs.")]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    host = {e.key: e for e in averages if e.device_type == DeviceType.CPU}
+
+    def count(*names):
+        return sum(host[n].count for n in names if n in host)
+
+    # device time of the kernels each operation launched (its children's included)
+    ops = {"cholesky": ["aten::linalg_cholesky_ex"], "cholesky_solve": ["aten::cholesky_solve"],
+           "qr": ["aten::linalg_qr"], "eigh": ["aten::_linalg_eigh"],
+           "dual_projection": ["drs.dual_projection"],
+           "matmul": ["aten::mm", "aten::bmm"]}
+    by_op = {k: sum(getattr(host[n], "device_time_total", 0) for n in names if n in host) / 1e3
+             for k, names in ops.items()}
+    kernels.sort(key=dev_us, reverse=True)
+    out = dict(iterations=iters, start_iteration=it0, wall_ms=wall_ms,
+               ms_per_iteration=wall_ms / max(iters, 1), device_busy_ms=busy_ms,
+               idle_share=(1.0 - busy_ms / wall_ms) if busy_ms > 0 else "not measured",
+               launches_per_iteration=sum(e.count for e in kernels) / max(iters, 1),
+               host_syncs_per_iteration=count("cudaStreamSynchronize",
+                                              "cudaDeviceSynchronize") / max(iters, 1),
+               memcpy_per_iteration=count("cudaMemcpyAsync") / max(iters, 1),
+               device_ms_by_op=by_op,
+               top_kernels=[dict(name=e.key[:90], launches=int(e.count), ms=dev_us(e) / 1e3)
+                            for e in kernels[:10]])
+    return out
+
+
+def cert_batch_problems(b: int, n: int, seed: int = 0):
+    """scripts/bench_certify.py's problems: known rotations, uniform noise
+    within the bound, 20% outliers with their theta -1."""
+    nb = CERT_BATCH_NOISE_BOUND
+    rng = np.random.default_rng(seed)
+    rots, srcs, dsts, thetas = [], [], [], []
+    for _ in range(b):
+        q, r_ = np.linalg.qr(rng.normal(size=(3, 3)))
+        q *= np.sign(np.diag(r_))
+        if np.linalg.det(q) < 0:
+            q[:, 0] = -q[:, 0]
+        src = rng.uniform(-1, 1, size=(3, n))
+        dst = q @ src + rng.uniform(-nb / 2, nb / 2, size=(3, n))
+        theta = np.ones(n)
+        out = rng.choice(n, size=n // 5, replace=False)
+        dst[:, out] = rng.uniform(-2, 2, size=(3, n // 5))
+        theta[out] = -1
+        rots.append(q)
+        srcs.append(src)
+        dsts.append(dst)
+        thetas.append(theta)
+    return tuple(np.stack(x) for x in (rots, srcs, dsts, thetas))
+
+
+def _cert_same_run(got, want) -> bool:
+    return (got.is_optimal == want.is_optimal
+            and len(got.suboptimality_traj) == len(want.suboptimality_traj)
+            and np.allclose(got.suboptimality_traj, want.suboptimality_traj,
+                            rtol=CERT_TRAJ_RTOL, atol=CERT_TRAJ_ATOL))
+
+
+def certify_batch_phase(device, repeats: int = 3) -> dict:
+    """Phase 21: scripts/bench_certify.py's defaults (B=32, N=100, DENSE, 100
+    iterations): certs/s, best of ``repeats`` after a first run. Gate: lane
+    by lane equal to ``DRSCertifier.certify`` of the problem alone (verdict,
+    iteration count, trajectory within the tests' tolerance)."""
+    from teaserpp_tpu_torch.certification.drs import DRSCertifier, certify_batch
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+    from teaserpp_tpu_torch.params import DRSCertifierParams
+
+    probs = cert_batch_problems(CERT_BATCH, CERT_BATCH_N)
+    params = DRSCertifierParams(noise_bound=CERT_BATCH_NOISE_BOUND,
+                                max_iterations=CERT_BATCH_ITERATIONS)
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res = certify_batch(*probs, params, device=device)
+    first_s = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    _require_no_launch(launches, "certify_batch")
+    runs = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        certify_batch(*probs, params, device=device)
+        runs.append(time.perf_counter() - t0)
+    single = DRSCertifier(params, device=device)
+    t0 = time.perf_counter()
+    differ = [b for b in range(CERT_BATCH)
+              if not _cert_same_run(res[b], single.certify(*(p[b] for p in probs)))]
+    singles_s = time.perf_counter() - t0
+    out = dict(batch=CERT_BATCH, n=CERT_BATCH_N, npm=4 * CERT_BATCH_N + 4,
+               max_iterations=CERT_BATCH_ITERATIONS, first_s=first_s, runs_s=runs,
+               certs_per_s=CERT_BATCH / min(runs),
+               certified=sum(r.is_optimal for r in res),
+               iterations=sorted({len(r.suboptimality_traj) for r in res}),
+               median_gap=float(np.median([r.best_suboptimality for r in res])),
+               singles_s=singles_s, lanes_differing=differ, launches=launches)
+    if differ:
+        raise AssertionError(f"certify_batch lanes differ from their single runs: {out}")
+    return out
+
+
+def cert_reference_instance(rng, n: int, outlier_ratio: float = 0.1):
+    """tests/test_certification_scale.py::reference_style_instance
+    (certification-test.cc:544-562): noise-free inliers, trailing outliers."""
+    v1 = rng.uniform(-1, 1, (3, n))
+    q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    v2 = q @ v1
+    k = int(n * (1 - outlier_ratio))
+    theta = np.ones(n)
+    theta[k:] = -1
+    v2[:, k:] = rng.uniform(-1, 1, (3, n - k)) * 5 + 5
+    return q, v1, v2, theta
+
+
+def certify_scale_phase(device) -> dict:
+    """Phase 22: the reference's large random instances: ITERATIVE at N=1000
+    (rank 128), and at N=499 ITERATIVE (rank 96, at most 5 iterations) then
+    DENSE. Gate, the reference's: certified with gap <= 1e-5, not saturated."""
+    from teaserpp_tpu_torch.certification.drs import DRSCertifier
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+    from teaserpp_tpu_torch.params import DRSCertifierParams, EigSolverType
+
+    ck.reset_launches()
+    out = {}
+    runs = ((f"iterative_npm{4 * CERT_SCALE_N + 4}", CERT_SCALE_N, EigSolverType.ITERATIVE, 128),
+            (f"iterative_npm{4 * CERT_SCALE_SMALL_N + 4}", CERT_SCALE_SMALL_N,
+             EigSolverType.ITERATIVE, 96),
+            (f"dense_npm{4 * CERT_SCALE_SMALL_N + 4}", CERT_SCALE_SMALL_N, EigSolverType.DENSE, 0))
+    for name, n, solver, rank in runs:
+        prob = cert_reference_instance(np.random.default_rng(12345), n)
+        params = DRSCertifierParams(noise_bound=0.01, eig_decomposition_solver=solver,
+                                    psd_projection_rank=rank)
+        t0 = time.perf_counter()
+        res = DRSCertifier(params, device=device).certify(*prob)
+        _sync(device)
+        out[name] = dict(seconds=time.perf_counter() - t0, is_optimal=res.is_optimal,
+                         gap=res.best_suboptimality, iterations=len(res.suboptimality_traj),
+                         rank_saturated=res.rank_saturated)
+        if not (res.is_optimal and res.best_suboptimality <= 1e-5 and not res.rank_saturated
+                and (n != CERT_SCALE_SMALL_N or len(res.suboptimality_traj) <= 5)):
+            raise AssertionError(f"certify_scale gate failed: {name} {out[name]}")
+    out["launches"] = dict(ck.LAUNCHES)
+    _require_no_launch(out["launches"], "certify_scale")
+    return out
+
+
+def cert_parity_problem(n: int = CERT_PARITY_N, seed: int = 40):
+    """A noisy problem (sd nb/4, a quarter outliers) solved by the port's
+    float64 GNC-TLS on the CPU -> (R, v1, v2, theta)."""
+    import torch
+
+    nb = CERT_PARITY_NOISE_BOUND
+    rng = np.random.default_rng(seed)
+    v1 = rng.standard_normal((3, n))
+    q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    v2 = q @ v1 + rng.standard_normal((3, n)) * (nb / 4)
+    idx = rng.choice(n, n // 4, replace=False)
+    v2[:, idx] = rng.standard_normal((3, n // 4)) * 2
+    r, inl, _ = _cert_gnc(torch.device("cpu"), v1, v2, nb)
+    return r, v1, v2, np.where(inl, 1.0, -1.0)
+
+
+def certify_parity_phase(device) -> dict:
+    """Phase 23: the card against the CPU at N=40 and, on the card,
+    ``certify_checkpointed`` stopped after 2 segments and resumed:
+    bit-identical to the uninterrupted run (a hash of the trajectory and the
+    best gap).
+
+    DENSE: equal verdict and iteration count, trajectories within the tests'
+    tolerance. ITERATIVE: the seed blocks are equal, but the initial Lanczos
+    estimate (no reorthogonalization, as in JAX) moves by a few percent
+    under a 1e-15 change of its input, and the shift it sets carries that
+    through the run; so the whole runs are held to an equal verdict and
+    iteration count, and the loop itself to the tests' tolerance from one
+    state: the CPU's init carried to the card, the same segment on both."""
+    import pathlib
+    import tempfile
+
+    import torch
+    from teaserpp_tpu_torch.certification import drs
+    from teaserpp_tpu_torch.certification.drs import DRSCertifier, certify_checkpointed
+    from teaserpp_tpu_torch.convert import drs_state_from_numpy, drs_state_to_numpy
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+    from teaserpp_tpu_torch.params import DRSCertifierParams, EigSolverType
+
+    prob = cert_parity_problem()
+    ck.reset_launches()
+    out = {}
+    for solver in (EigSolverType.DENSE, EigSolverType.ITERATIVE):
+        params = DRSCertifierParams(noise_bound=CERT_PARITY_NOISE_BOUND,
+                                    eig_decomposition_solver=solver)
+        card = DRSCertifier(params, device=device).certify(*prob)
+        cpu = DRSCertifier(params, device="cpu").certify(*prob)
+        same_length = len(card.suboptimality_traj) == len(cpu.suboptimality_traj)
+        out[solver.name.lower()] = dict(
+            is_optimal=[card.is_optimal, cpu.is_optimal],
+            iterations=[len(card.suboptimality_traj), len(cpu.suboptimality_traj)],
+            gap=[card.best_suboptimality, cpu.best_suboptimality],
+            max_traj_diff=float(np.abs(np.subtract(card.suboptimality_traj,
+                                                   cpu.suboptimality_traj)).max())
+            if same_length else None)
+        ok = (_cert_same_run(card, cpu) if solver == EigSolverType.DENSE
+              else card.is_optimal == cpu.is_optimal and same_length)
+        if not ok:
+            raise AssertionError(f"certify_parity: card and CPU differ: {out}")
+    # ITERATIVE from one state: the CPU's init, carried to the card
+    cpu_args = [torch.as_tensor(a, dtype=torch.float64)[None] for a in prob]
+    state, consts = drs._iterative_init_batch(*cpu_args, params)
+    # how far the initial Lanczos estimate moves under a 1e-15 change of v1
+    nudged = list(cpu_args)
+    nudged[1] = nudged[1] * (1 + 1e-15)
+    lam0 = float(state[6][0])
+    out["lanczos_rel_change_at_1e-15"] = abs(
+        float(drs._iterative_init_batch(*nudged, params)[0][6][0]) - lam0) / abs(lam0)
+    s_card, c_card = drs_state_from_numpy(
+        *drs_state_to_numpy(drs._lane(state), drs._lane(consts)), device, torch.float64)
+    card_end = drs._iterative_segment_batch(drs._batched(s_card), drs._batched(c_card), params,
+                                            params.max_iterations)
+    cpu_end = drs._iterative_segment_batch(state, consts, params, params.max_iterations)
+    it_card, it_cpu = int(card_end[0][0]), int(cpu_end[0][0])
+    traj_card, traj_cpu = card_end[3][0, :it_card].cpu().numpy(), cpu_end[3][0, :it_cpu].numpy()
+    out["iterative_shared_state"] = dict(
+        iterations=[it_card, it_cpu],
+        max_traj_diff=float(np.abs(traj_card - traj_cpu).max()) if it_card == it_cpu else None)
+    if not (it_card == it_cpu and np.allclose(traj_card, traj_cpu, rtol=CERT_TRAJ_RTOL,
+                                              atol=CERT_TRAJ_ATOL)):
+        raise AssertionError(f"certify_parity: card and CPU differ from one state: {out}")
+    params = DRSCertifierParams(noise_bound=CERT_PARITY_NOISE_BOUND,
+                                eig_decomposition_solver=EigSolverType.ITERATIVE,
+                                iterations_per_dispatch=7)
+
+    def digest(res):
+        return _hash(np.asarray(res.suboptimality_traj, np.float64),
+                     np.asarray(res.best_suboptimality, np.float64))
+
+    whole = certify_checkpointed(*prob, params, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(pathlib.Path(tmp) / "ck.npz")
+        stopped = certify_checkpointed(*prob, params, checkpoint_path=ckpt, checkpoint_every=1,
+                                       _stop_after_segments=2, device=device)
+        resumed = certify_checkpointed(*prob, params, checkpoint_path=ckpt, checkpoint_every=1,
+                                       device=device)
+    out["resume"] = dict(stopped=stopped is None, whole=digest(whole), resumed=digest(resumed),
+                         iterations=len(whole.suboptimality_traj))
+    if not (stopped is None and digest(whole) == digest(resumed)
+            and len(whole.suboptimality_traj) > 2 * 7):
+        raise AssertionError(f"certify_parity: resume is not bit-identical: {out}")
+    out["launches"] = dict(ck.LAUNCHES)
+    _require_no_launch(out["launches"], "certify_parity")
+    return out
+
+
 def determinism_child() -> int:
     """One facade-defaults solve on the card; prints its hash (for the
     determinism phase's fresh processes)."""
@@ -2077,6 +2491,17 @@ def main() -> int:
     cli_run = cli_phase(device, demo)
     print(json.dumps({"cli": cli_run, "card": card}), flush=True)
 
+    cert_e2e, cert_subsets = certify_e2e_phase(device)
+    print(json.dumps({"certify_e2e": cert_e2e, "card": card}), flush=True)
+    print(json.dumps({"certify_e2e_profile": certify_profile_phase(device, cert_subsets["scene60k"]),
+                      "card": card}), flush=True)
+    cert_batch = certify_batch_phase(device)
+    print(json.dumps({"certify_batch": cert_batch, "card": card}), flush=True)
+    cert_scale = certify_scale_phase(device)
+    print(json.dumps({"certify_scale": cert_scale, "card": card}), flush=True)
+    cert_parity = certify_parity_phase(device)
+    print(json.dumps({"certify_parity": cert_parity, "card": card}), flush=True)
+
     # which shape's numbers stand at the top of each kernel's entry: the one
     # its path gives it
     paths = {"solve_batch": path["launches"], "solve_large_sharded": large["launches"],
@@ -2085,7 +2510,9 @@ def main() -> int:
              "unknown_scale_batch": scale_batch["launches"],
              "clique_mode_batch": clique["launches"], "icp": icp["launches"],
              "fpfh_frontend": frontend["launches"], "fpfh_facade_icp": facade_icp["launches"],
-             "cli": cli_run["launches"]}
+             "cli": cli_run["launches"], "certify_e2e": cert_e2e["launches"],
+             "certify_batch": cert_batch["launches"], "certify_scale": cert_scale["launches"],
+             "certify_parity": cert_parity["launches"]}
     entries = [
         ("trim_bits", "teaserpp_tpu_torch/csrc/trim_bits.cu",
          "teaserpp_tpu/ops/pallas_kernels.py:165", 0),

@@ -16,12 +16,21 @@ containers and helpers (``utils/``), a profiler hook
 (``utils/timing.py::trace_to``), the FPFH front end (``features/``: grid-hash
 neighbour plans, normals, FPFH descriptors and the exact-NN ``Matcher``;
 imported from ``teaserpp_tpu_torch.features``, as in the JAX package) and
-the command-line tool (``python -m teaserpp_tpu_torch.cli``). The three
+the command-line tool (``python -m teaserpp_tpu_torch.cli``) and the DRS
+optimality certifier (``certification/``: ``DRSCertifier``, DENSE and
+ITERATIVE, ``certify_batch``, ``certify_checkpointed``; float64 by default
+through its ``dtype`` argument). The three
 TPU kernels of the JAX package are hand-written CUDA kernels
 (``csrc/trim_bits.cu``, ``csrc/trim_degrees.cu``, ``csrc/trim_adjacency.cu``;
 wrappers in ``ops/cuda_kernels.py``).
 """
 
+from teaserpp_tpu_torch.certification import (
+    CertificationResult,
+    DRSCertifier,
+    DRSCertifierParams,
+    EigSolverType,
+)
 from teaserpp_tpu_torch.params import (
     GNCRotationSolverParams,
     InlierGraphFormulation,
@@ -53,6 +62,10 @@ INLIER_SELECTION_MODE = InlierSelectionMode
 INLIER_GRAPH_FORMULATION = InlierGraphFormulation
 
 __all__ = [
+    "CertificationResult",
+    "DRSCertifier",
+    "DRSCertifierParams",
+    "EigSolverType",
     "GNCRotationSolverParams",
     "INLIER_GRAPH_FORMULATION",
     "INLIER_SELECTION_MODE",

@@ -58,3 +58,33 @@ def large_result_to_numpy(res):
         max_core=_to_numpy(res.max_core),
         clique_size=_to_numpy(res.clique_size),
     )
+
+
+# Dtype of each field of the certifier's loop state (it, m, best, traj, done,
+# v_psd, lam_psd, v_gap, lam_gap, sat): None for the working float dtype.
+_DRS_STATE_DTYPES = (torch.int32, None, None, None, torch.bool, None, None, None, None,
+                     torch.bool)
+
+
+def drs_state_from_numpy(state, consts, device, dtype):
+    """The certifier's ITERATIVE loop state from numpy arrays, as tensors.
+
+    ``state`` holds the 10 arrays and ``consts`` the 3 of the JAX package's
+    ``_iterative_init`` (state0, consts) of one problem, or of a checkpoint
+    written by either package's ``certify_checkpointed`` (``s0``..``s9``,
+    ``c0``..``c2``). The counter stays int32 and the flags bool; every float
+    array takes ``dtype``. Returns (state, consts) as tuples of tensors on
+    ``device``, the port's unbatched form.
+    """
+    if len(state) != len(_DRS_STATE_DTYPES) or len(consts) != 3:
+        raise ValueError("a certifier state has 10 arrays and its constants 3")
+    state = tuple(torch.as_tensor(np.array(a), device=device).to(d or dtype)
+                  for a, d in zip(state, _DRS_STATE_DTYPES))
+    consts = tuple(torch.as_tensor(np.array(a), device=device).to(dtype) for a in consts)
+    return state, consts
+
+
+def drs_state_to_numpy(state, consts):
+    """Inverse of :func:`drs_state_from_numpy`: the 10 + 3 arrays in the JAX
+    package's dtypes (int32 counter, bool flags, floats as they are)."""
+    return tuple(_to_numpy(v) for v in state), tuple(_to_numpy(v) for v in consts)

@@ -1,8 +1,8 @@
 """The port stands alone: no import of JAX or of the JAX package, CPU solves
 (batched known and unknown scale, the batched greedy clique, huge-N, exact,
 the facade, ICP), PLY I/O and the FPFH front end, matcher and command-line
-tool with JAX blocked, its own native clique library, and no silent
-fallback to the CPU."""
+tool and the DRS certifier with JAX blocked, its own native clique library,
+and no silent fallback to the CPU."""
 
 import ast
 import pathlib
@@ -127,6 +127,23 @@ with tempfile.TemporaryDirectory() as tmp:
 assert rc == 0
 res = json.loads(out.getvalue().strip().splitlines()[-1])
 assert res["valid"] and np.abs(np.asarray(res["translation"]) - [0.2, -0.1, 0.05]).max() < 1e-2
+
+# the DRS certifier, DENSE and ITERATIVE, and a checkpointed run
+from teaserpp_tpu_torch import DRSCertifier, DRSCertifierParams, EigSolverType
+from teaserpp_tpu_torch.certification.drs import certify_batch, certify_checkpointed
+q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+q *= np.sign(np.linalg.det(q))
+v1 = rng.uniform(-1, 1, (3, 10))
+v2 = q @ v1
+v2[:, 9] = 5.0
+theta = np.r_[np.ones(9), -1.0]
+for solver in (EigSolverType.DENSE, EigSolverType.ITERATIVE):
+    cert = DRSCertifier(noise_bound=0.01, eig_decomposition_solver=solver, device="cpu")
+    assert cert.certify(q, v1, v2, theta).is_optimal
+assert certify_batch(q[None], v1[None], v2[None], theta[None], device="cpu")[0].is_optimal
+with tempfile.TemporaryDirectory() as tmp:
+    assert certify_checkpointed(q, v1, v2, theta, checkpoint_path=tmp + "/c.npz",
+                                device="cpu").is_optimal
 assert "jaxlib" not in sys.modules
 
 # the exact search ran in the port's own library: nothing of the JAX package's
@@ -179,6 +196,15 @@ def test_default_device_raises_without_cuda(monkeypatch):
                   FPFHEstimation):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
+    from teaserpp_tpu_torch import DRSCertifier
+    from teaserpp_tpu_torch.certification.drs import certify_batch, certify_checkpointed
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DRSCertifier().certify(np.eye(3), np.ones((3, 4)), np.ones((3, 4)), np.ones(4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        certify_batch(np.eye(3)[None], np.ones((1, 3, 4)), np.ones((1, 3, 4)), np.ones((1, 4)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        certify_checkpointed(np.eye(3), np.ones((3, 4)), np.ones((3, 4)), np.ones(4))
     pts = np.random.default_rng(0).uniform(size=(64, 3))
     plans = build_neighbor_plans(pts, (0.3, 0.4), block=32, pad_multiple=32)
     with pytest.raises(RuntimeError, match="CUDA"):
