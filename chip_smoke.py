@@ -29,7 +29,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    and must cover every unordered block once, a batch beyond the
    launch's grid must raise, and the approximate square root that
    ``trim_adjacency_i8`` filters with must keep its error bound over every
-   finite float (checked exhaustively on the card);
+   finite float (checked exhaustively on the card). The K1 row slab (a
+   mesh rank's word rows) against its plain version and against the whole
+   launch's rows, on the filled allocator block: the two halves of
+   (1, 100000) (timed, with their bound), and on (7, 333)'s scattered
+   validity the ragged last rows, one row, an empty slab and a first slab,
+   and the second word row of (2, 33);
 4. batched path: ``solve_batch`` on 512 bunny-shaped problems (N=1889, 1700
    outlier draws with replacement, so ~59% outliers; bench.py's parameters)
    with every launch count set to 0 just before and read just after; every
@@ -146,6 +151,28 @@ Phases, in order; any failure raises and the script exits non-zero:
     verdict and iteration count, trajectories within the same tolerance),
     and ``certify_checkpointed`` stopped after 2 segments and resumed on the
     card: bit-identical to the uninterrupted run.
+
+24. mesh: one world of two ranks sharing the card (gloo named, a loopback
+    store, collectives that time out after 300 s; this script with
+    ``--mesh-rank``), each running (a) ``solve_large_sharded`` and
+    ``solve_large_exact`` on phase 6's N=100,000 problem on a (1, 2) mesh
+    over ``pairs`` (K1 as row slabs), (b) phase 16's synth100k pair through
+    ``FPFHEstimation(neighbor_mode="grid")`` with its query blocks over both
+    ranks, the matcher and ``solve_large_sharded`` on the (1, 2) mesh (the
+    dense branch: no kernel), (c) ``solve_batch_sharded`` on phase 4's 512
+    problems on a (2, 1) mesh over ``batch``. Every rank's results equal
+    this process's ``mesh=None`` runs on the card bit for bit (on (c) each
+    rank's half equals ``solve_batch`` of that half; the whole batch equals
+    phase 4's within 1e-4 with equal masks), (a) and (b) pass phases 6 and
+    16's gates, the slab launches on (a) and nothing on (b); prints seconds
+    beside ``mesh=None``'s, peak memory a rank, the backend and the bytes
+    staged through the host. Two ranks share one card: no scaling numbers;
+25. a world of one over NCCL, joined here (``init_process_group("nccl")``,
+    world size 1): (a) on the (1, 1) mesh, equal to ``mesh=None`` bit for
+    bit, the collectives through NCCL (no host staging); then two ranks
+    (this script with ``--nccl-refusal``) that ask ``initialize_distributed``
+    for its default backend, NCCL, on the one card must both be refused
+    with a ``RuntimeError`` that names the shared card and gloo.
 
 Phases 10-12, 15 and 18-23 run no TRIM kernel (as in the JAX package,
 their route reaches no Pallas kernel): each sets the launch counts to 0
@@ -422,6 +449,37 @@ def trim_bits_bound_ms(valid: np.ndarray) -> tuple[float, str, int]:
     }), pairs)
 
 
+def trim_bits_slab_bound_ms(valid: np.ndarray, rows) -> tuple[float, str, int]:
+    """Least time for the word rows ``rows = (w0, w1)`` of the TRIM bits:
+    the predicate once for each unordered pair of valid points inside the
+    slab's rows, and once for each ordered pair of a valid point of those
+    rows and one outside them (the slab holds no mirror of those), against
+    the points read and the slab's words written."""
+    bsz, n = valid.shape
+    w0, w1 = rows
+    inside = valid[:, 32 * w0:32 * w1].sum(axis=-1).astype(np.int64)
+    outside = valid.sum(axis=-1).astype(np.int64) - inside
+    pairs = int(np.sum(inside * (inside - 1) // 2 + inside * outside))
+    nbytes = bsz * (2 * 3 * n * 4 + n) + bsz * (w1 - w0) * n * 4
+    return (*_bound({
+        "fp32": TRIM_OPS_PER_PAIR * pairs / FP32_OPS_PER_S * 1e3,
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+    }), pairs)
+
+
+def slab_cases(inputs: dict) -> list:
+    """(input name, word rows) of the K1 slab checks: the two halves of the
+    (1, 100000) problem (a (1, 2) mesh's slabs, timed), then the edge cases
+    on the scattered validity mask (7, 333) (11 word rows, the last holding
+    13 points): the ragged last rows, one row, an empty slab, a first slab;
+    and the second word row of (2, 33)."""
+    words = (LARGE_N + 31) // 32
+    half = -(-words // 2)
+    return [("large", (0, half)), ("large", (half, words)),
+            ("scattered", (6, 11)), ("scattered", (4, 5)), ("scattered", (3, 3)),
+            ("scattered", (0, 7)), ("two_blocks", (1, 2))]
+
+
 def trim_degrees_bound_ms(bsz: int, n: int) -> tuple[float, str, int]:
     """Least time for the TRIM degrees of (B, 3, N) points: the same
     predicate per unordered pair as the bits, against the points read and
@@ -573,7 +631,8 @@ def kernel_phase(device, seed: int = 0) -> dict:
     inputs = kernel_inputs(seed)
     src_main, dst_main = inputs["main"][:2]
     large_src, large_dst = inputs["large"][:2]
-    results = {"trim_bits": [], "trim_degrees": [], "trim_adjacency_i8": []}
+    results = {"trim_bits": [], "trim_bits_slab": [], "trim_degrees": [],
+               "trim_adjacency_i8": []}
 
     def shape_of(s):
         return dict(batch=int(s.shape[0]), n=int(s.shape[-1]))
@@ -589,6 +648,25 @@ def kernel_phase(device, seed: int = 0) -> dict:
         bound_ms, bound_by, pairs = trim_bits_bound_ms(v_np)
         results["trim_bits"].append(dict(
             **shape_of(s), **res, bound_ms=bound_ms, bound_by=bound_by, bound_pairs=pairs))
+        del s, d, v
+
+    # the K1 row slab: against its plain version and the whole launch's rows
+    for name, rows in slab_cases(inputs):
+        s_np, d_np, v_np, bt = inputs[name]
+        s, d, v = _to(device, s_np, d_np, v_np)
+        out_shape = (s.shape[0], rows[1] - rows[0], s.shape[-1])
+        res = _compare_and_time(
+            lambda: ck.trim_bits(s, d, v, bt, rows=rows),
+            lambda: ck.trim_adjacency_bits_plain(s, d, v, bt, rows=rows), device, 20, 3,
+            poison=(out_shape, torch.int32))
+        whole = ck.trim_bits(s, d, v, bt)[:, rows[0]:rows[1]]
+        res["equals_whole_rows"] = bool(torch.equal(ck.trim_bits(s, d, v, bt, rows=rows), whole))
+        res["equal"] = res["equal"] and res["equals_whole_rows"]
+        del whole
+        bound_ms, bound_by, pairs = trim_bits_slab_bound_ms(v_np, rows)
+        results["trim_bits_slab"].append(dict(
+            case=name, rows=list(rows), **shape_of(s), **res, bound_ms=bound_ms,
+            bound_by=bound_by, bound_pairs=pairs))
         del s, d, v
 
     # trim_degrees: no validity mask, so every point of the main shape counts
@@ -2375,6 +2453,355 @@ def certify_parity_phase(device) -> dict:
     return out
 
 
+MESH_FLAG = "--mesh-rank"  # what a rank of the mesh phase's world runs
+MESH_WORLD = 2
+MESH_TIMEOUT_S = 300.0  # the ranks' collectives give up after this
+MESH_WAIT_S = 600.0  # the parent kills a world that runs longer
+MESH_REPEATS = 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _fields(prefix: str, result) -> dict:
+    """A result (LargeSolveResult, PipelineSolution, tensors, arrays) as
+    {name: numpy array}, for an exact comparison across processes."""
+    import torch
+
+    if isinstance(result, tuple) and hasattr(result, "_fields"):
+        out = {}
+        for k in result._fields:
+            out.update(_fields(f"{prefix}.{k}", getattr(result, k)))
+        return out
+    if isinstance(result, torch.Tensor):
+        result = result.detach().cpu().numpy()
+    return {prefix: np.asarray(result)}
+
+
+def mesh_frontend(device, src, dst, blocks=None, pairs=None):
+    """Mesh case (b): ``FPFHEstimation(neighbor_mode="grid")`` on both clouds
+    with its query blocks over ``blocks``, the matcher with cross-check, and
+    ``solve_large_sharded`` over ``pairs`` (``None``: one device). Returns
+    (correspondences (K, 2), source and target descriptors, result)."""
+    from teaserpp_tpu_torch import solve_large_sharded
+    from teaserpp_tpu_torch.features import FPFHEstimation, Matcher
+
+    est = FPFHEstimation(neighbor_mode="grid", mesh=blocks, device=device)
+    ds = est.computeFPFHFeatures(src, *FRONTEND_RADII)
+    dd = est.computeFPFHFeatures(dst, *FRONTEND_RADII)
+    corr = np.asarray(Matcher(device=device).calculateCorrespondences(
+        src, dst, ds, dd, False, True, False, 0.95), np.int64).reshape(-1, 2)
+    src_c = np.ascontiguousarray(src[corr[:, 0]].T).astype(np.float32)
+    dst_c = np.ascontiguousarray(dst[corr[:, 1]].T).astype(np.float32)
+    return corr, ds, dd, solve_large_sharded(src_c, dst_c, frontend_params(), mesh=pairs,
+                                             device=device)
+
+
+def mesh_child(rank: int, address: str, out_dir: str, device_name: str) -> int:
+    """One rank of the mesh phase's world: cases (a)-(c) on ``device_name``
+    (``cuda:0``, shared with the other rank), over gloo. Writes its results
+    to ``<out_dir>/rank<r>.npz`` and its numbers to ``rank<r>.json``."""
+    import pathlib
+
+    import torch
+    import torch.distributed as dist
+    from teaserpp_tpu_torch import solve_large_exact, solve_large_sharded
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+    from teaserpp_tpu_torch.parallel import multihost as mh
+    from teaserpp_tpu_torch.parallel import solve_batch_sharded
+
+    device = torch.device(device_name)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    mh.initialize_distributed(address, MESH_WORLD, rank, backend="gloo",
+                              timeout_s=MESH_TIMEOUT_S)
+    pairs = mh.make_mesh(pairs_per_host=MESH_WORLD)  # (1, 2): the pair rows over both
+    batch = mh.make_mesh(pairs_per_host=1)  # (2, 1): the batch over both
+    blocks = mh.Mesh(np.arange(MESH_WORLD), ("blocks",))  # the front end's query blocks
+    fields, stats = {}, dict(rank=rank, backend=dist.get_backend(), device=str(device),
+                             pairs_mesh=pairs.shape, batch_mesh=batch.shape)
+
+    def run(name, fn, repeats=0):
+        dist.barrier()
+        ck.reset_launches()
+        mh.reset_staged_bytes()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        stats[name] = dict(first_s=time.perf_counter() - t0, launches=dict(ck.LAUNCHES),
+                           staged_bytes=dict(mh.STAGED_BYTES))
+        times = []
+        for _ in range(repeats):
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn()
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+        if times:
+            stats[name]["seconds_all"] = times
+        return out
+
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    src, dst, *_ = make_large_problem(LARGE_N)
+    src_d, dst_d = _to(device, src, dst)
+    fields.update(_fields("large", run("large", lambda: solve_large_sharded(
+        src_d, dst_d, large_params(), mesh=pairs, device=device), MESH_REPEATS)))
+    fields.update(_fields("exact", run("exact", lambda: solve_large_exact(
+        src_d, dst_d, large_params(), mesh=pairs, time_limit=EXACT_TIME_LIMIT_S,
+        device=device))))
+    del src_d, dst_d
+    fe_src, fe_dst, *_ = make_frontend_pair(FRONTEND_N)
+    corr, ds, dd, fe = run("frontend", lambda: mesh_frontend(device, fe_src, fe_dst, blocks,
+                                                             pairs), 1)
+    fields.update(_fields("frontend", fe))
+    fields.update({"frontend.corr": corr, "frontend.desc_src": ds, "frontend.desc_dst": dd})
+    b_src, b_dst = make_problems(BATCH, N_POINTS)
+    fields.update(_fields("batch", run("batch", lambda: solve_batch_sharded(
+        b_src, b_dst, bench_params(), batch, device=device), MESH_REPEATS)))
+    stats["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None
+    out = pathlib.Path(out_dir)
+    np.savez(out / f"rank{rank}.npz", **fields)
+    (out / f"rank{rank}.json").write_text(json.dumps(stats))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _differing(got: dict, want: dict, keys) -> list:
+    """The keys whose arrays differ in dtype, shape or any bit."""
+    return [k for k in keys if got[k].dtype != want[k].dtype or got[k].shape != want[k].shape
+            or got[k].tobytes() != want[k].tobytes()]
+
+
+def mesh_references(device, batch_sol) -> dict:
+    """The mesh phase's ``mesh=None`` runs on this card, timed: (a) and (b)
+    as the ranks run them, and ``solve_batch`` of each half of the batch.
+    ``batch_sol`` is phase 4's solve of the whole batch (numpy)."""
+    import torch
+    from teaserpp_tpu_torch import solve_batch, solve_large_exact, solve_large_sharded
+
+    def timed(fn, repeats):
+        times, out = [], None
+        for _ in range(1 + repeats):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = fn()
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+        return out, times
+
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    src, dst, r_true, t_true, inlier = make_large_problem(LARGE_N)
+    src_d, dst_d = _to(device, src, dst)
+    large, large_s = timed(lambda: solve_large_sharded(src_d, dst_d, large_params(),
+                                                       device=device), MESH_REPEATS)
+    exact, exact_s = timed(lambda: solve_large_exact(
+        src_d, dst_d, large_params(), time_limit=EXACT_TIME_LIMIT_S, device=device), 0)
+    fe_src, fe_dst, fe_r, fe_t = make_frontend_pair(FRONTEND_N)
+    (corr, ds, dd, fe), fe_s = timed(lambda: mesh_frontend(device, fe_src, fe_dst), 1)
+    b_src, b_dst = make_problems(BATCH, N_POINTS)
+    half = BATCH // MESH_WORLD
+    halves = [_fields("batch", solve_batch(b_src[i * half:(i + 1) * half],
+                                           b_dst[i * half:(i + 1) * half], bench_params(),
+                                           device=device)) for i in range(MESH_WORLD)]
+    fields = {**_fields("large", large), **_fields("exact", exact), **_fields("frontend", fe),
+              "frontend.corr": corr, "frontend.desc_src": ds, "frontend.desc_dst": dd}
+    return dict(fields=fields, halves=halves, batch_sol=batch_sol, large_s=large_s,
+                exact_s=exact_s, frontend_s=fe_s, truth=(r_true, t_true, inlier, fe_r, fe_t),
+                peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None)
+
+
+def mesh_phase(device, refs: dict) -> dict:
+    """Two ranks sharing this card, gloo named, each running cases (a)-(c)
+    (``mesh_child``); every rank's results equal the ``mesh=None`` runs of
+    ``refs`` bit for bit ((c): each rank's half equals ``solve_batch`` of
+    that half, the whole batch phase 4's within the parity tolerance) and
+    pass the gates of phases 6 and 16. The K1 slab must launch on (a) and no
+    kernel on (b)."""
+    import tempfile
+
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the ranks share this card
+    with tempfile.TemporaryDirectory() as tmp:
+        address = f"127.0.0.1:{_free_port()}"
+        card = "cuda:0" if device.type == "cuda" else "cpu"
+        procs = [subprocess.Popen([sys.executable, __file__, MESH_FLAG, str(r), address, tmp,
+                                   card],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(MESH_WORLD)]
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=MESH_WAIT_S))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        for r, (proc, (_, err)) in enumerate(zip(procs, logs)):
+            if proc.returncode != 0:
+                raise AssertionError(f"mesh rank {r} failed (rc {proc.returncode}): {err[-3000:]}")
+        ranks = []
+        for r in range(MESH_WORLD):
+            with np.load(f"{tmp}/rank{r}.npz") as z:
+                ranks.append(({k: z[k] for k in z.files},
+                              json.loads(open(f"{tmp}/rank{r}.json").read())))
+
+    want = refs["fields"]
+    r_true, t_true, inlier, fe_r, fe_t = refs["truth"]
+    half = BATCH // MESH_WORLD
+    out = dict(world=MESH_WORLD, note="two ranks share one card: no scaling numbers",
+               ranks=[])
+    for r, (got, stats) in enumerate(ranks):
+        keys = [k for k in want if not k.startswith("batch")]
+        differ = _differing(got, want, keys)
+        batch_keys = [k for k in got if k.startswith("batch")]
+        own = refs["halves"][r]
+        differ += [f"{k}[half {r}]" for k in batch_keys
+                   if got[k][r * half:(r + 1) * half].tobytes() != own[k].tobytes()]
+        differ += [f"{k}[half {1 - r}]" for k in batch_keys
+                   if got[k][(1 - r) * half:(2 - r) * half].tobytes()
+                   != refs["halves"][1 - r][k].tobytes()]
+        whole = refs["batch_sol"]
+        rot = float(np.linalg.norm(got["batch.rotation"] - whole.rotation, axis=(1, 2)).max())
+        trans = float(np.linalg.norm(got["batch.translation"] - whole.translation, axis=1).max())
+        masks = bool(np.array_equal(got["batch.clique_mask"], whole.clique_mask))
+        if differ or not masks or rot > PARITY_TOL or trans > PARITY_TOL:
+            raise AssertionError(
+                f"mesh rank {r} differs from mesh=None: {differ[:12]}, whole-batch masks "
+                f"{masks}, rotation {rot}, translation {trans}")
+        launches = {k: stats[k]["launches"] for k in ("large", "exact", "frontend", "batch")}
+        for path, kernels in (("large", ["trim_bits_slab"]), ("exact", ["trim_bits_slab"]),
+                              ("batch", ["trim_bits"])):
+            _require_launched(device, launches[path], f"mesh {path} (rank {r})", kernels)
+        _require_no_launch(launches["frontend"], f"mesh frontend (rank {r})")
+        out["ranks"].append(dict(
+            rank=r, backend=stats["backend"], device=stats["device"],
+            pairs_mesh=stats["pairs_mesh"], batch_mesh=stats["batch_mesh"],
+            equal_to_mesh_none=True, batch_whole_rotation_max=rot,
+            batch_whole_translation_max=trans, peak_memory_gb=stats["peak_memory_gb"],
+            **{f"{k}_first_s": stats[k]["first_s"] for k in ("large", "exact", "frontend", "batch")},
+            large_s=stats["large"]["seconds_all"], frontend_s=stats["frontend"]["seconds_all"],
+            batch_s=stats["batch"]["seconds_all"], launches=launches,
+            staged_bytes={k: stats[k]["staged_bytes"] for k in launches}))
+
+    got = ranks[0][0]
+    large = _large_result_view(got, "large")
+    out["large_gate"] = _large_gate("mesh solve_large_sharded", large, r_true, t_true, inlier)
+    out["exact_gate"] = _large_gate("mesh solve_large_exact", _large_result_view(got, "exact"),
+                                    r_true, t_true, inlier)
+    out["frontend_gate"] = _frontend_gate("mesh synth100k", _large_result_view(got, "frontend"),
+                                          fe_r, fe_t)
+    out["correspondences"] = int(got["frontend.corr"].shape[0])
+    out["mesh_none"] = dict(large_s=refs["large_s"], exact_s=refs["exact_s"],
+                            frontend_s=refs["frontend_s"], peak_memory_gb=refs["peak_memory_gb"])
+    return out
+
+
+def _large_result_view(fields: dict, prefix: str):
+    """A LargeSolveResult of numpy arrays from ``_fields`` output."""
+    from teaserpp_tpu_torch.parallel.sharded import LargeSolveResult
+    from teaserpp_tpu_torch.solvers.pipeline import PipelineSolution
+
+    sol = PipelineSolution(*(fields[f"{prefix}.solution.{k}"] for k in PipelineSolution._fields))
+    return LargeSolveResult(solution=sol, max_core=fields[f"{prefix}.max_core"],
+                            clique_size=fields[f"{prefix}.clique_size"])
+
+
+NCCL_REFUSAL_FLAG = "--nccl-refusal"  # a rank of the refused NCCL world
+
+
+def nccl_refusal_child(rank: int, address: str) -> int:
+    """A rank of a world of two that asks for the default backend (NCCL) on
+    a host with one card: ``initialize_distributed`` must raise and name
+    the cause, on both ranks, before NCCL sees the shared card."""
+    from teaserpp_tpu_torch.parallel import multihost as mh
+
+    try:
+        mh.initialize_distributed(address, 2, rank, timeout_s=60.0)
+    except RuntimeError as exc:
+        refused = "Duplicate GPU" in str(exc) and "gloo" in str(exc)
+        print(json.dumps({"rank": rank, "refused": refused, "message": str(exc)}), flush=True)
+        return 0 if refused else 1
+    print(json.dumps({"rank": rank, "refused": False}), flush=True)
+    return 1
+
+
+def nccl_refusal_phase() -> list:
+    """Two ranks asking for NCCL on the one card are refused, by name."""
+    address = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen([sys.executable, __file__, NCCL_REFUSAL_FLAG, str(r), address],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=120))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for proc, (out, err) in zip(procs, outs):
+        if proc.returncode != 0:
+            raise AssertionError(f"NCCL on a shared card was not refused: {out} {err[-2000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+
+
+def nccl_phase(device, refs: dict) -> dict:
+    """A world of one over NCCL on this card: the phase joins it itself
+    (``init_process_group("nccl")``, world size 1) and runs case (a) on the
+    (1, 1) mesh of ``make_mesh``, whose collectives then go through NCCL;
+    equal to the ``mesh=None`` runs of ``refs`` bit for bit."""
+    import datetime
+
+    import torch.distributed as dist
+    from teaserpp_tpu_torch import solve_large_exact, solve_large_sharded
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+    from teaserpp_tpu_torch.parallel import multihost as mh
+
+    src, dst, r_true, t_true, inlier = make_large_problem(LARGE_N)
+    src_d, dst_d = _to(device, src, dst)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = mh.make_mesh()
+        ck.reset_launches()
+        mh.reset_staged_bytes()
+        t0 = time.perf_counter()
+        large = solve_large_sharded(src_d, dst_d, large_params(), mesh=mesh, device=device)
+        _sync(device)
+        large_s = time.perf_counter() - t0
+        exact = solve_large_exact(src_d, dst_d, large_params(), mesh=mesh,
+                                  time_limit=EXACT_TIME_LIMIT_S, device=device)
+        _sync(device)
+        launches = dict(ck.LAUNCHES)
+        out = dict(backend=dist.get_backend(), world=dist.get_world_size(), mesh=mesh.shape,
+                   large_s=large_s, launches=launches, staged_bytes=dict(mh.STAGED_BYTES))
+    finally:
+        dist.destroy_process_group()
+    got = {**_fields("large", large), **_fields("exact", exact)}
+    differ = _differing(got, refs["fields"], got)
+    if differ or out["backend"] != "nccl" or any(out["staged_bytes"].values()):
+        raise AssertionError(f"NCCL world of one: {differ}, {out}")
+    _require_launched(device, launches, "NCCL world of one", ["trim_bits"])
+    out["gate"] = _large_gate("NCCL solve_large_sharded", _large_result_view(got, "large"),
+                              r_true, t_true, inlier)
+    out["equal_to_mesh_none"] = True
+    return out
+
+
 def determinism_child() -> int:
     """One facade-defaults solve on the card; prints its hash (for the
     determinism phase's fresh processes)."""
@@ -2398,6 +2825,10 @@ def main() -> int:
         return 1
     if sys.argv[1:] == [CHILD_FLAG]:
         return determinism_child()
+    if sys.argv[1:2] == [MESH_FLAG]:
+        return mesh_child(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
+    if sys.argv[1:2] == [NCCL_REFUSAL_FLAG]:
+        return nccl_refusal_child(int(sys.argv[2]), sys.argv[3])
 
     card = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2502,6 +2933,14 @@ def main() -> int:
     cert_parity = certify_parity_phase(device)
     print(json.dumps({"certify_parity": cert_parity, "card": card}), flush=True)
 
+    refs = mesh_references(device, sol)
+    mesh = mesh_phase(device, refs)
+    print(json.dumps({"mesh": mesh, "card": card}), flush=True)
+    nccl = nccl_phase(device, refs)
+    nccl["shared_card_refused"] = nccl_refusal_phase()
+    print(json.dumps({"nccl_world_of_one": nccl, "card": card}), flush=True)
+    del refs
+
     # which shape's numbers stand at the top of each kernel's entry: the one
     # its path gives it
     paths = {"solve_batch": path["launches"], "solve_large_sharded": large["launches"],
@@ -2512,9 +2951,15 @@ def main() -> int:
              "fpfh_frontend": frontend["launches"], "fpfh_facade_icp": facade_icp["launches"],
              "cli": cli_run["launches"], "certify_e2e": cert_e2e["launches"],
              "certify_batch": cert_batch["launches"], "certify_scale": cert_scale["launches"],
-             "certify_parity": cert_parity["launches"]}
+             "certify_parity": cert_parity["launches"],
+             "nccl_world_of_one": nccl["launches"]}
+    for path in ("large", "exact", "frontend", "batch"):  # summed over the ranks
+        paths[f"mesh_{path}"] = {k: sum(r["launches"][path][k] for r in mesh["ranks"])
+                                 for k in mesh["ranks"][0]["launches"][path]}
     entries = [
         ("trim_bits", "teaserpp_tpu_torch/csrc/trim_bits.cu",
+         "teaserpp_tpu/ops/pallas_kernels.py:165", 0),
+        ("trim_bits_slab", "teaserpp_tpu_torch/csrc/trim_bits.cu",
          "teaserpp_tpu/ops/pallas_kernels.py:165", 0),
         ("trim_degrees", "teaserpp_tpu_torch/csrc/trim_degrees.cu",
          "teaserpp_tpu/ops/pallas_kernels.py:244", 1),

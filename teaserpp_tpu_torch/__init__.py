@@ -4,13 +4,17 @@ A port of ``teaserpp_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100, kept
 beside it with the same module names. It imports neither JAX nor the JAX
 package. Entry points run on CUDA unless called with ``device="cpu"``.
 
-Ported so far: the public solver ``RobustRegistrationSolver`` (every
+Ported: the public solver ``RobustRegistrationSolver`` (every
 inlier-selection mode, GNC-TLS / FGR / Quatro, CHAIN and COMPLETE, known
 and unknown scale, custom stage estimators), the batched solve
 (``solve_batch`` / ``register_batch``, known or unknown scale, every
 inlier-selection mode: the top k-core or the batched greedy clique), the
-huge-N single-problem solve on one device (``solve_large_sharded``,
-``solve_large_exact``), point-to-point ICP (``solvers/icp.py``), PLY and PCD
+huge-N single-problem solve (``solve_large_sharded``, ``solve_large_exact``),
+the multi-process and mesh paths over ``torch.distributed``
+(``parallel/multihost.py``: ``initialize_distributed``, ``make_mesh`` and a
+mesh of ranks; ``parallel.solve_batch_sharded``; the ``mesh=`` branches of
+the huge-N solve, row-sharded, and of the front end), point-to-point ICP
+(``solvers/icp.py``), PLY and PCD
 I/O (``io/``), batch results files (``parallel/results_io.py``), the point
 containers and helpers (``utils/``), a profiler hook
 (``utils/timing.py::trace_to``), the FPFH front end (``features/``: grid-hash

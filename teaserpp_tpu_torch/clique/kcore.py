@@ -15,6 +15,13 @@ numbers per problem.
 
 Words are int32 bit patterns throughout (PyTorch lacks shifts on uint32):
 bit ``b`` of a word is set iff the word's two's-complement value has it.
+
+On a mesh each rank holds a slab of word rows (``parallel/sharded.py``):
+:func:`active_degrees` of a slab counts only its rows, and the loops here
+take a ``degrees`` function that sums those partial degrees over the ranks
+(one all-reduce a round). Every host read that ends a loop then reads a
+value computed from the summed degrees, the same on every rank, so no rank
+leaves a loop while another waits in a collective.
 """
 
 from __future__ import annotations
@@ -90,13 +97,16 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
 _DEGREE_CHUNK_WORDS = 1 << 25
 
 
-def active_degrees(adj_bits: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+def active_degrees(adj_bits: torch.Tensor, active: torch.Tensor,
+                   word0: int = 0) -> torch.Tensor:
     """Degrees into the active set: ``deg[p, j] = sum_w popcount(adj_bits[p,
     w, j] & active_bits[p, w])``, ``(B, W, N)`` words and ``(B, N)`` bool ->
     ``(B, N)`` int32. Summed over chunks of word rows when the words are many;
-    integer sums, so the chunking changes nothing."""
+    integer sums, so the chunking changes nothing. ``adj_bits`` may be the
+    slab of word rows ``[word0, word0 + W)`` of the whole: the degrees then
+    count the slab's rows only, and the slabs' degrees sum to the whole's."""
     bsz, words, n = adj_bits.shape
-    act_bits = pack_bits_u32(active)  # (B, W)
+    act_bits = pack_bits_u32(active)[:, word0:word0 + words]  # (B, W)
     step = max(1, _DEGREE_CHUNK_WORDS // max(1, bsz * n))
     deg = torch.zeros((bsz, n), dtype=torch.int32, device=adj_bits.device)
     for w0 in range(0, words, step):
@@ -111,19 +121,28 @@ def _initial_active(bsz: int, n: int, valid: Optional[torch.Tensor], device) -> 
     return valid.to(torch.bool).clone()
 
 
-def _kcore_fixpoint(adj_bits: torch.Tensor, k: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+Degrees = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _whole(adj_bits: torch.Tensor, degrees: Optional[Degrees]) -> Degrees:
+    """``degrees`` if given, else the degrees of the whole words ``adj_bits``."""
+    return degrees or (lambda active: active_degrees(adj_bits, active))
+
+
+def _kcore_fixpoint(degrees: Degrees, k: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     """Drop active vertices with active-degree < ``k`` (B, 1) until no problem
     changes. The k-core is unique, so running every problem until the last
     one is stable gives each problem its own fixpoint."""
     while True:
-        keep = active & (active_degrees(adj_bits, active) >= k)
+        keep = active & (degrees(active) >= k)
         if torch.equal(keep, active):  # the round's one host sync
             return keep
         active = keep
 
 
 def max_core_from_bits(
-    adj_bits: torch.Tensor, n: int, valid: Optional[torch.Tensor] = None
+    adj_bits: torch.Tensor, n: int, valid: Optional[torch.Tensor] = None,
+    degrees: Optional[Degrees] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Maximum k-core mask and max core number, by binary search over k.
 
@@ -134,18 +153,23 @@ def max_core_from_bits(
     loops with one host sync a round. Integer logic only, so mask and
     ``max_core`` equal the JAX package's exactly.
 
+    ``degrees(active)`` gives the ``(B, N)`` degrees into ``active``; by
+    default those of the whole words ``adj_bits`` (a slab's summed over a
+    mesh in ``parallel/sharded.py``).
+
     Returns (mask (B, N) bool of the max-core vertices, max_core (B,) int32).
     """
     bsz = adj_bits.shape[0]
+    degrees = _whole(adj_bits, degrees)
     base = _initial_active(bsz, n, valid, adj_bits.device)
-    deg0 = active_degrees(adj_bits, base)
+    deg0 = degrees(base)
     zero = torch.zeros((), dtype=torch.int32, device=adj_bits.device)
     hi = torch.where(base, deg0, zero).amax(dim=-1)  # max_core <= max degree
     lo = torch.zeros_like(hi)
     while bool((lo < hi).any()):
         searching = lo < hi
         k = (lo + hi + 1) // 2
-        probe = _kcore_fixpoint(adj_bits, k[:, None], base)
+        probe = _kcore_fixpoint(degrees, k[:, None], base)
         ok = probe.any(dim=-1)
         lo = torch.where(searching & ok, k, lo)
         hi = torch.where(searching & ~ok, k - 1, hi)
@@ -158,34 +182,37 @@ def kcore_mask_from_bits(
     n: int,
     k,
     valid: Optional[torch.Tensor] = None,
+    degrees: Optional[Degrees] = None,
 ) -> torch.Tensor:
     """(B, N) bool mask of each problem's ``k``-core on row-packed words.
 
     ``k`` is an int or a (B,) tensor. Bulk-removal fixpoint, as in the JAX
     package: with a clique lower bound ``lb``, every vertex of a maximum
     clique lies in the (lb-1)-core, so this mask is a safe pruning before the
-    host exact search.
+    host exact search. ``degrees`` as in :func:`max_core_from_bits`.
     """
     bsz = adj_bits.shape[0]
     k = torch.as_tensor(k, dtype=torch.int32, device=adj_bits.device)
     k = k.expand(bsz)[:, None]
     active = _initial_active(bsz, n, valid, adj_bits.device)
-    return _kcore_fixpoint(adj_bits, k, active)
+    return _kcore_fixpoint(_whole(adj_bits, degrees), k, active)
 
 
 def core_numbers_from_bits(
-    adj_bits: torch.Tensor, n: int, valid: Optional[torch.Tensor] = None
+    adj_bits: torch.Tensor, n: int, valid: Optional[torch.Tensor] = None,
+    degrees: Optional[Degrees] = None,
 ) -> torch.Tensor:
     """Core numbers from row-packed ``(B, W, N)`` int32 adjacency words.
 
     Invalid vertices get core number -1. Returns ``(B, N)`` int32.
+    ``degrees`` as in :func:`max_core_from_bits`.
     """
     return _peel(adj_bits.shape[0], n, valid, adj_bits.device,
-                 lambda active: active_degrees(adj_bits, active))
+                 _whole(adj_bits, degrees))
 
 
 def _peel(bsz: int, n: int, valid: Optional[torch.Tensor], dev,
-          degrees: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+          degrees: Degrees) -> torch.Tensor:
     """The batch peel over ``degrees(active)`` (B, N) int32 -> core numbers."""
     active = _initial_active(bsz, n, valid, dev)
     core = torch.full((bsz, n), -1, dtype=torch.int32, device=dev)

@@ -44,16 +44,17 @@ from teaserpp_tpu_torch.features.normals import (
     _r2_dense,
     _r2_grid,
     _require_tensor,
-    block_steps,
     check_plan_radius,
     estimate_normals,
     estimate_normals_pruned,
+    gather_slots,
+    mesh_steps,
     pair_diffs,
     query_rows,
-    require_no_mesh,
     sorted_on_device,
 )
 from teaserpp_tpu_torch.features.spatial import SENTINEL, NeighborPlan, build_neighbor_plans
+from teaserpp_tpu_torch.parallel.multihost import require_mesh
 
 _NR_BINS = 11
 
@@ -188,11 +189,11 @@ def compute_fpfh(
 
 
 def _spfh_sorted(sp, sn, rows, ci, r2, steps) -> torch.Tensor:
-    """(nblocks * block, 33) SPFH of every query slot of a plan, in sorted
-    order: ``sp``/``sn`` sorted points and normals with their fill row,
-    ``rows`` :func:`query_rows`, ``ci`` the candidate lists."""
+    """(slots, 33) SPFH of the query slots of the plan's blocks in
+    ``steps``, in sorted order: ``sp``/``sn`` sorted points and normals with
+    their fill row, ``rows`` :func:`query_rows`, ``ci`` the candidate lists."""
     ones = torch.ones(rows.shape, dtype=sp.dtype, device=sp.device)
-    return torch.cat([
+    return torch.cat([sp.new_empty((0, 3 * _NR_BINS))] + [
         _spfh_core(sp[rows[s.start:s.stop]], sn[rows[s.start:s.stop]], ones[s.start:s.stop],
                    sp[ci[s.start:s.stop]], sn[ci[s.start:s.stop]], r2)
         for s in steps
@@ -210,10 +211,13 @@ def compute_fpfh_pruned(
 
     ``pts`` are host points, sorted on the host; ``normals`` may be a tensor
     on ``device`` (gathered there) or host numbers. Runs in the points'
-    dtype on ``device`` (CUDA unless named); ``mesh`` is not ported and
-    raises."""
-    require_no_mesh(mesh)
+    dtype on ``device`` (CUDA unless named). With a ``mesh`` (a port
+    ``Mesh``) SPFH and FPFH are sharded over its first axis, as the normals
+    of :func:`~teaserpp_tpu_torch.features.normals.estimate_normals_pruned`
+    are, the SPFH table gathered between the two passes; every rank of the
+    axis returns the whole result."""
     check_plan_radius(radius, plan)
+    steps, sizes = mesh_steps(plan, mesh)
     dev = resolve_device(device)
     pts_np = _host(pts)
     dtype = _floating(torch.as_tensor(pts_np[:0]).dtype)
@@ -222,16 +226,16 @@ def compute_fpfh_pruned(
     rows = query_rows(plan, dev)
     ci = torch.as_tensor(plan.cand_idx, device=dev).long()
     r2 = _r2_grid(radius, dtype, dev)
-    steps = block_steps(plan)
     # the sorted SPFH table with a zero row for the padding candidates
-    spfh = _spfh_sorted(sp, sn, rows, ci, r2, steps)[: plan.n]
+    spfh = gather_slots(mesh, sizes, _spfh_sorted(sp, sn, rows, ci, r2, steps))[: plan.n]
     spfh_sorted = torch.cat([spfh, spfh.new_zeros((1, 3 * _NR_BINS))])
     del spfh
-    fpfh = torch.cat([
+    fpfh = torch.cat([sp.new_empty((0, 3 * _NR_BINS))] + [
         _fpfh_core(sp[rows[s.start:s.stop]], sp[ci[s.start:s.stop]],
                    spfh_sorted[ci[s.start:s.stop]], r2)
         for s in steps
-    ])[: plan.n]
+    ])
+    fpfh = gather_slots(mesh, sizes, fpfh)[: plan.n]
     return fpfh[torch.as_tensor(plan.inv, device=dev)]
 
 
@@ -250,15 +254,16 @@ class FPFHEstimation:
     ``device`` is CUDA unless named (without CUDA the constructor raises);
     ``dtype`` is the passes' float type, float32 by default as the JAX
     package computes on a TPU (float64 to compare with JAX under x64).
-    ``mesh`` is not ported and raises ``NotImplementedError``. Inputs and
-    results are numpy.
+    ``mesh`` (a port ``Mesh``, ``parallel/multihost.py``) shards the grid
+    path's query blocks over the mesh's first axis; the dense path ignores
+    it, as in JAX. Inputs and results are numpy.
     """
 
     def __init__(self, chunk_size: int = 1024, neighbor_mode: str = "auto",
                  mesh=None, device: DeviceLike = None, dtype: torch.dtype = torch.float32):
         if neighbor_mode not in ("auto", "dense", "grid"):
             raise ValueError(f"unknown neighbor_mode: {neighbor_mode!r}")
-        require_no_mesh(mesh)
+        self._mesh = require_mesh(mesh)
         self.device = resolve_device(device)
         self.dtype = dtype
         self._normals = np.zeros((0, 3))
@@ -300,10 +305,10 @@ class FPFHEstimation:
             # copy of the cloud is made on this branch
             host = pts.astype(torch.empty((), dtype=self.dtype).numpy().dtype)
             nres = estimate_normals_pruned(host, normal_search_radius, plans[0],
-                                           device=self.device)
+                                           mesh=self._mesh, device=self.device)
             self._normals = nres.normals.cpu().numpy()
             desc = compute_fpfh_pruned(host, nres.normals, fpfh_search_radius, plans[1],
-                                       device=self.device)
+                                       mesh=self._mesh, device=self.device)
             return desc.cpu().numpy()
 
         pts_d = torch.as_tensor(pts, device=self.device).to(self.dtype)

@@ -19,6 +19,13 @@ cloud: it is a Python loop of ~450 small operations, the same arithmetic per
 point whatever the batch, so one call gives the bits that one call a block
 would, at a hundredth of the launches.
 
+With a ``mesh`` (``parallel/multihost.py``) the grid route's query blocks are
+sharded over the ranks of the mesh's first axis, as JAX's ``shard_map``
+shards them; the sorted cloud is replicated. A rank runs a contiguous run of
+the steps that ``mesh=None`` runs (:func:`mesh_steps`), cut at the same
+block indices, so every reduction and product runs at the shape it has
+without a mesh and the gathered results equal ``mesh=None``'s bit for bit.
+
 The radius test keeps each JAX route's own rounding of r^2. On the dense
 route JAX's radius is static, so ``radius * radius`` is a Python double
 rounded once to the points' dtype; on the grid route it is a device scalar
@@ -37,6 +44,7 @@ import torch
 from teaserpp_tpu_torch.device import DeviceLike, resolve_device
 from teaserpp_tpu_torch.features.spatial import SENTINEL, NeighborPlan, sorted_padded
 from teaserpp_tpu_torch.ops.procrustes import jacobi_eigh_small
+from teaserpp_tpu_torch.parallel.multihost import Mesh, require_mesh
 
 # Pairs (query rows x candidates) one step of a pruned pass holds at once:
 # several query blocks go together up to this count. A step keeps a few dozen
@@ -244,13 +252,36 @@ def check_plan_radius(radius: float, plan: NeighborPlan) -> None:
         )
 
 
-def require_no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded front end is not ported yet, only mesh=None "
-            "(ROADMAP queue 1, item 6: the shard_map passes of features/ "
-            "over torch.distributed)"
-        )
+def mesh_steps(plan: NeighborPlan, mesh: Optional[Mesh]):
+    """The steps of :func:`block_steps` that this rank runs, and each rank's
+    count of query slots (None without a mesh, when this process runs every
+    step).
+
+    A step starting at block ``s`` goes to coordinate ``s P // nblocks`` of
+    the mesh's first axis (size ``P``): each rank gets a contiguous run of
+    whole steps, about ``nblocks / P`` blocks (JAX pads the blocks to a
+    multiple of ``P`` with ``pad_block_count`` and splits them evenly; a cut
+    inside a step would run part of it at another shape, and on the card
+    another batch size may take another reduction order).
+    """
+    steps = block_steps(plan)
+    if require_mesh(mesh) is None:
+        return steps, None
+    axis = mesh.axis_names[0]
+    parts = mesh.shape[axis]
+    owner = [s.start * parts // plan.nblocks for s in steps]
+    mine = [s for s, o in zip(steps, owner) if o == mesh.coords[axis]]
+    sizes = [plan.block * sum(len(s) for s, o in zip(steps, owner) if o == r)
+             for r in range(parts)]
+    return mine, sizes
+
+
+def gather_slots(mesh: Optional[Mesh], sizes, x: torch.Tensor) -> torch.Tensor:
+    """The ranks' per-slot rows ``x`` gathered in block order along the
+    mesh's first axis (``x`` itself without a mesh)."""
+    if mesh is None:
+        return x
+    return mesh.all_gather(x, mesh.axis_names[0], sizes=sizes)
 
 
 def estimate_normals_pruned(
@@ -268,10 +299,12 @@ def estimate_normals_pruned(
     ``pts`` (N, 3) are host points (numpy, or a tensor), sorted on the host
     by ``plan`` (from :func:`~teaserpp_tpu_torch.features.spatial.
     build_neighbor_plans` for this radius) and computed in their own dtype
-    on ``device`` (CUDA unless named). ``mesh`` is not ported and raises.
+    on ``device`` (CUDA unless named). With a ``mesh`` (a port ``Mesh``)
+    the query blocks are sharded over its first axis (the module docstring)
+    and every rank of it returns the whole result.
     """
-    require_no_mesh(mesh)
     check_plan_radius(radius, plan)
+    steps, sizes = mesh_steps(plan, mesh)
     dev = resolve_device(device)
     pts_np = _host(pts)
     dtype = _floating(torch.as_tensor(pts_np[:0]).dtype)
@@ -279,13 +312,14 @@ def estimate_normals_pruned(
     rows = query_rows(plan, dev)
     ci = torch.as_tensor(plan.cand_idx, device=dev).long()
     r2 = _r2_grid(radius, dtype, dev)
-    covs, cnts = [], []
-    for step in block_steps(plan):
+    covs, cnts = [sp.new_empty((0, 3, 3))], [sp.new_empty((0,))]
+    for step in steps:
         blocks = slice(step.start, step.stop)
         cov, cnt = _moments(sp[rows[blocks]], sp[ci[blocks]], r2)
         covs.append(cov)
         cnts.append(cnt)
     vp = torch.tensor(tuple(viewpoint), dtype=dtype, device=dev)
-    res = _normals_from_cov(torch.cat(covs), torch.cat(cnts), sp[rows.reshape(-1)], vp)
+    mine = slice(steps[0].start, steps[-1].stop) if steps else slice(0, 0)
+    res = _normals_from_cov(torch.cat(covs), torch.cat(cnts), sp[rows[mine].reshape(-1)], vp)
     inv = torch.as_tensor(plan.inv, device=dev)
-    return NormalsResult(*(a[: plan.n][inv] for a in res))
+    return NormalsResult(*(gather_slots(mesh, sizes, a)[: plan.n][inv] for a in res))

@@ -3,7 +3,9 @@
 Counterpart of ``teaserpp_tpu/ops/pallas_kernels.py``:
 
 * ``trim_bits`` (``csrc/trim_bits.cu``) replaces
-  ``pallas_kernels.py::trim_adjacency_bits_pallas``, batched and masked.
+  ``pallas_kernels.py::trim_adjacency_bits_pallas``, batched and masked;
+  given a word-row range it launches the same file's row-slab kernel
+  (counted as ``trim_bits_slab``), the row-sharded words of a mesh.
 * ``trim_degrees`` (``csrc/trim_degrees.cu``) replaces
   ``pallas_kernels.py::trim_degrees_pallas``, batched.
 * ``trim_adjacency_i8`` (``csrc/trim_adjacency.cu``) replaces
@@ -32,7 +34,7 @@ from teaserpp_tpu_torch.clique.kcore import pack_bits_u32_rows
 from teaserpp_tpu_torch.ops import _build
 from teaserpp_tpu_torch.ops.tims import _pdist2, trim_pred_sq
 
-LAUNCHES = {"trim_bits": 0, "trim_degrees": 0, "trim_adjacency_i8": 0}
+LAUNCHES = {"trim_bits": 0, "trim_bits_slab": 0, "trim_degrees": 0, "trim_adjacency_i8": 0}
 
 # Pairs per chunk of the plain version: bounds its float intermediates to a
 # few hundred MB whatever the batch and N.
@@ -44,30 +46,45 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def word_rows(n: int, rows) -> tuple:
+    """``rows`` (a word-row range ``(w0, w1)``, or None for all) checked
+    against the ``ceil(n/32)`` word rows of N = ``n``."""
+    words = (n + 31) // 32
+    if rows is None:
+        return 0, words
+    w0, w1 = (int(r) for r in rows)
+    if not 0 <= w0 <= w1 <= words:
+        raise ValueError(f"word rows {rows} outside [0, {words}] of N={n}")
+    return w0, w1
+
+
 def trim_adjacency_bits_plain(
-    src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor, beta: float
+    src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor, beta: float,
+    rows=None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the ``trim_bits`` kernel.
 
     ``(B, 3, N)`` float32 points and ``(B, N)`` bool validity ->
     ``(B, ceil(N/32), N)`` int32 words; bit ``b`` of word ``[p, w, j]`` is the
     TRIM predicate of pair ``(32 w + b, j)`` of problem ``p``, masked by the
-    diagonal and by both vertices' validity. Chunked over the batch, or over
-    32-row bands at large N, so memory stays bounded.
+    diagonal and by both vertices' validity. With ``rows = (w0, w1)``, only
+    the word rows ``[w0, w1)``: ``(B, w1 - w0, N)`` (the slab kernel's
+    plain version). Chunked over the batch, or over 32-row bands at large
+    N, so memory stays bounded.
     """
     bsz, _, n = src.shape
-    words = (n + 31) // 32
-    out = torch.empty((bsz, words, n), dtype=torch.int32, device=src.device)
+    row0, words = word_rows(n, rows)
+    out = torch.empty((bsz, words - row0, n), dtype=torch.int32, device=src.device)
     col = torch.arange(n, device=src.device)
-    per_problem = words * 32 * n
+    per_problem = max(1, (words - row0) * 32 * n)
     if per_problem <= _PLAIN_CHUNK_PAIRS:
-        b_step, w_step = max(1, _PLAIN_CHUNK_PAIRS // per_problem), words
+        b_step, w_step = max(1, _PLAIN_CHUNK_PAIRS // per_problem), max(1, words - row0)
     else:
         b_step, w_step = 1, max(1, _PLAIN_CHUNK_PAIRS // (32 * n))
     for b0 in range(0, bsz, b_step):
         b1 = min(b0 + b_step, bsz)
         s, d, v = src[b0:b1], dst[b0:b1], valid[b0:b1]
-        for w0 in range(0, words, w_step):
+        for w0 in range(row0, words, w_step):
             w1 = min(w0 + w_step, words)
             r0, r1 = 32 * w0, min(32 * w1, n)
             pred = trim_pred_sq(
@@ -76,7 +93,7 @@ def trim_adjacency_bits_plain(
             row = col[r0:r1]
             pred &= row[:, None] != col[None, :]
             pred &= v[:, r0:r1, None] & v[:, None, :]
-            out[b0:b1, w0:w1] = pack_bits_u32_rows(pred)
+            out[b0:b1, w0 - row0:w1 - row0] = pack_bits_u32_rows(pred)
     return out
 
 
@@ -97,6 +114,9 @@ _POINTER, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LAUNCH_ARGTYPES = {
     # src, dst, valid, out, batch, n, b2, stream
     "trim_bits": [_POINTER, _POINTER, _POINTER, _POINTER, _INT, _INT, _FLOAT, _POINTER],
+    # src, dst, valid, out, batch, n, w0, w1, b2, stream
+    "trim_bits_slab": [_POINTER, _POINTER, _POINTER, _POINTER, _INT, _INT, _INT, _INT,
+                       _FLOAT, _POINTER],
     # src, dst, out, batch, n, b2, stream
     "trim_degrees": [_POINTER, _POINTER, _POINTER, _INT, _INT, _FLOAT, _POINTER],
     # src, dst, out, batch, n, beta, stream
@@ -104,15 +124,18 @@ _LAUNCH_ARGTYPES = {
 }
 
 
-def _launch(lib_name: str, counter: str, device: torch.device, *args) -> None:
-    """Call ``<lib_name>_launch(*args, stream)`` on ``device``'s current
-    stream, raise on a refused launch, and count the launch. The launch
-    functions check their own grid limits and refuse what they do not take."""
+def _launch(lib_name: str, counter: str, device: torch.device, *args,
+            entry: str = None) -> None:
+    """Call ``<entry>_launch(*args, stream)`` of library ``lib_name``
+    (``entry`` defaults to ``lib_name``) on ``device``'s current stream,
+    raise on a refused launch, and count the launch. The launch functions
+    check their own grid limits and refuse what they do not take."""
     lib = _build.load_library(lib_name)
-    fn = getattr(lib, f"{lib_name}_launch")
+    entry = entry or lib_name
+    fn = getattr(lib, f"{entry}_launch")
     err = getattr(lib, f"{lib_name}_error_string")
     if fn.argtypes is None:
-        fn.argtypes = _LAUNCH_ARGTYPES[lib_name]
+        fn.argtypes = _LAUNCH_ARGTYPES[entry]
         fn.restype = ctypes.c_int
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -137,7 +160,8 @@ def _check_points(name: str, src: torch.Tensor, dst: torch.Tensor):
 
 
 def trim_bits(
-    src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor, beta: float
+    src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor, beta: float,
+    rows=None,
 ) -> torch.Tensor:
     """Batched TRIM adjacency bit words: the ``trim_bits`` kernel's wrapper.
 
@@ -150,18 +174,30 @@ def trim_bits(
     once and both of its orientations stored, so every word of the
     uninitialised output is written exactly once. A batch or N beyond the
     launch's grid limits raises.
+
+    ``rows = (w0, w1)`` asks for the word rows ``[w0, w1)`` only, ``(B, w1 -
+    w0, N)``, equal bit for bit to those rows of the whole: on CUDA the
+    row-slab kernel (``trim_bits_slab_launch``, counted as
+    ``trim_bits_slab``), whose every word is written once too; all rows
+    ``(0, W)`` are the whole launch above, and an empty range launches
+    nothing.
     """
     bsz, n = _check_points("trim_bits", src, dst)
     _check("valid", valid, torch.bool, (bsz, n), src.device)
+    w0, w1 = word_rows(n, rows)
     if src.device.type == "cpu":
-        return trim_adjacency_bits_plain(src, dst, valid, beta)
-    words = (n + 31) // 32
-    out = torch.empty((bsz, words, n), dtype=torch.int32, device=src.device)
-    if bsz == 0 or n == 0:
+        return trim_adjacency_bits_plain(src, dst, valid, beta, rows=rows)
+    out = torch.empty((bsz, w1 - w0, n), dtype=torch.int32, device=src.device)
+    if bsz == 0 or n == 0 or w0 == w1:
         return out
     b2 = float(np.float32(beta * beta))  # rounded once to f32, as in JAX
-    _launch("trim_bits", "trim_bits", src.device, src.data_ptr(), dst.data_ptr(),
-            valid.data_ptr(), out.data_ptr(), bsz, n, b2)
+    if (w0, w1) == (0, (n + 31) // 32):
+        _launch("trim_bits", "trim_bits", src.device, src.data_ptr(), dst.data_ptr(),
+                valid.data_ptr(), out.data_ptr(), bsz, n, b2)
+    else:
+        _launch("trim_bits", "trim_bits_slab", src.device, src.data_ptr(),
+                dst.data_ptr(), valid.data_ptr(), out.data_ptr(), bsz, n, w0, w1, b2,
+                entry="trim_bits_slab")
     return out
 
 

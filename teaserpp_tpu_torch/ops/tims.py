@@ -106,19 +106,24 @@ def trim_adjacency_dense(
     noise_bound: float,
     cbar2: float = 1.0,
     valid: Optional[torch.Tensor] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """(..., N, N) bool TRIM consistency adjacency with a zero diagonal.
 
     ``adj[i, j] = | ||src_i - src_j|| - ||dst_i - dst_j|| | <= 2 nb sqrt(cbar2)``
     for ``i != j`` and both valid. Materializes the N x N fields: the main
-    path uses :func:`trim_adjacency_bits` instead.
+    path uses :func:`trim_adjacency_bits` instead. ``rows = (r0, r1)`` gives
+    the row band ``adj[..., r0:r1, :]`` only, equal to those rows of the
+    whole (the row-sharded dense branch of a mesh).
     """
     beta = trim_beta(noise_bound, cbar2)
     n = src.shape[-1]
-    adj = trim_pred_sq(_pdist2(src, src), _pdist2(dst, dst), beta)
-    adj = adj & ~torch.eye(n, dtype=torch.bool, device=src.device)
+    r0, r1 = (0, n) if rows is None else rows
+    adj = trim_pred_sq(_pdist2(src[..., r0:r1], src), _pdist2(dst[..., r0:r1], dst), beta)
+    idx = torch.arange(n, device=src.device)
+    adj = adj & (idx[r0:r1, None] != idx[None, :])
     if valid is not None:
-        adj = adj & valid[..., None, :] & valid[..., :, None]
+        adj = adj & valid[..., None, :] & valid[..., r0:r1, None]
     return adj
 
 
@@ -128,6 +133,7 @@ def trim_adjacency_bits(
     noise_bound: float,
     cbar2: float = 1.0,
     valid: Optional[torch.Tensor] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Batched TRIM adjacency as row-packed int32 words, ``(B, ceil(N/32), N)``.
 
@@ -135,14 +141,15 @@ def trim_adjacency_bits(
     vertices (``valid`` False) masked out of rows and columns. Dispatches to
     the CUDA kernel for a CUDA tensor and to its plain version on the CPU.
     The words are int32 bit patterns: view them as ``np.uint32`` to compare
-    with the JAX package.
+    with the JAX package. ``rows = (w0, w1)`` gives the word rows ``[w0,
+    w1)`` only, ``(B, w1 - w0, N)`` (the row slab of a mesh rank).
     """
     from teaserpp_tpu_torch.ops.cuda_kernels import trim_bits
 
     if valid is None:
         valid = torch.ones(src.shape[0], src.shape[-1], dtype=torch.bool,
                            device=src.device)
-    return trim_bits(src, dst, valid, trim_beta(noise_bound, cbar2))
+    return trim_bits(src, dst, valid, trim_beta(noise_bound, cbar2), rows=rows)
 
 
 def chain_tims(

@@ -1,8 +1,9 @@
-"""Single huge-N known-scale registration on one device.
+"""Single huge-N known-scale registration, on one device or row-sharded
+over a mesh of ranks.
 
-Counterpart of ``teaserpp_tpu/parallel/sharded.py`` with ``mesh=None``: for a
-problem of 100K correspondences the N x N pair grid exists only as row-packed
-bit words (N^2/8 bytes), built by the ``trim_bits`` kernel at B=1.
+Counterpart of ``teaserpp_tpu/parallel/sharded.py``: for a problem of 100K
+correspondences the N x N pair grid exists only as row-packed bit words
+(N^2/8 bytes), built by the ``trim_bits`` kernel at B=1.
 
 Pipeline:
   1. TRIM adjacency bits (CUDA kernel)                       [O(N^2) compute]
@@ -14,8 +15,21 @@ Pipeline:
 One problem is ``(3, N)``; inside, it runs as a batch of one through the
 batched stage functions, and every field of the returned
 :class:`LargeSolveResult` (and of its ``solution``) is unbatched, the JAX
-package's layout. The mesh-sharded branches are not ported yet and raise
-``NotImplementedError``.
+package's layout.
+
+With a ``mesh`` (``parallel/multihost.py``) the O(N^2) structure is sharded
+over the ranks of ``pairs_axis``, as JAX shards it ``P(pairs, None)``: rank
+``r`` of ``P`` holds the word rows ``[r ceil(W/P), (r+1) ceil(W/P))`` of the
+bit words (the ``trim_bits`` row slab) or the matching 32-row band of the
+dense adjacency, packed to the same words. Each round of the k-core loops
+sums the slabs' partial degrees with one all-reduce over the axis, so the
+core numbers, masks and ``max_core`` equal the unsharded ones exactly. The
+points and everything after the scores (the stable top ``m``, the
+subgraph's greedy clique, rotation and translation) are replicated: every
+rank runs them on equal inputs and returns the same result. The host exact
+search of :func:`solve_large_exact` runs on the axis' first rank and its
+clique is broadcast. Other mesh axes replicate. ``mesh=None`` is the
+single-device path.
 """
 
 from __future__ import annotations
@@ -29,12 +43,14 @@ from teaserpp_tpu_torch.clique import exact as _exact
 from teaserpp_tpu_torch.clique.heuristic import heuristic_max_clique
 from teaserpp_tpu_torch.clique.kcore import (
     active_degrees,
-    core_numbers,
+    core_numbers_from_bits,
     kcore_mask_from_bits,
     max_core_from_bits,
+    pack_bits_u32_rows,
 )
 from teaserpp_tpu_torch.device import DeviceLike, resolve_device
 from teaserpp_tpu_torch.ops.tims import trim_adjacency_bits, trim_adjacency_dense
+from teaserpp_tpu_torch.parallel.multihost import Mesh, require_mesh, shard_range
 from teaserpp_tpu_torch.params import RobustRegistrationSolverParams
 from teaserpp_tpu_torch.solvers.pipeline import (
     PipelineSolution,
@@ -50,13 +66,32 @@ class LargeSolveResult(NamedTuple):
     clique_size: torch.Tensor  # scalar
 
 
-def _require_single_device(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded huge-N path is not ported yet, only mesh=None "
-            "(ROADMAP queue 1, item 13: the pairs_sharding branches of "
-            "parallel/sharded.py over torch.distributed)"
-        )
+class PairsShard(NamedTuple):
+    """This rank's share of a problem's word rows on ``mesh[axis]``."""
+
+    mesh: Mesh
+    axis: str
+    w0: int  # word rows [w0, w1) of the ceil(N/32)
+    w1: int
+
+    @classmethod
+    def of(cls, mesh: Optional[Mesh], axis: str, n: int) -> Optional["PairsShard"]:
+        if require_mesh(mesh) is None:
+            return None
+        if axis not in mesh.shape:
+            raise ValueError(f"pairs_axis {axis!r} is not an axis of {mesh}")
+        w0, w1 = shard_range((n + 31) // 32, mesh.shape[axis], mesh.coords[axis])
+        return cls(mesh, axis, w0, w1)
+
+
+def _degrees(shard: Optional[PairsShard], words: torch.Tensor):
+    """``active -> (1, N)`` degrees into ``active``: of the whole ``words``,
+    or, with a ``shard``, of this rank's slab summed over the shard's axis
+    (the whole graph's degrees on every rank)."""
+    if shard is None:
+        return lambda active: active_degrees(words, active)
+    return lambda active: shard.mesh.all_reduce(
+        active_degrees(words, active, shard.w0), shard.axis)
 
 
 def _points(src, dst, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -71,13 +106,15 @@ def _points(src, dst, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]
     return src[None], dst[None]
 
 
-def _adjacency_bits_fast(src, dst, params) -> torch.Tensor:
-    """Row-packed TRIM words of one problem, ``(1, ceil(N/32), N)`` int32.
+def _adjacency_bits_fast(src, dst, params, shard: Optional[PairsShard] = None) -> torch.Tensor:
+    """Row-packed TRIM words of one problem, ``(1, ceil(N/32), N)`` int32,
+    or this rank's slab of them, ``(1, w1 - w0, N)``.
 
-    The port builds them one way: the ``trim_bits`` kernel on CUDA, its plain
-    version for CPU tensors.
+    The port builds them one way: the ``trim_bits`` kernel on CUDA (its row
+    slab on a mesh), its plain version for CPU tensors.
     """
-    return trim_adjacency_bits(src, dst, params.noise_bound, params.cbar2)
+    rows = None if shard is None else (shard.w0, shard.w1)
+    return trim_adjacency_bits(src, dst, params.noise_bound, params.cbar2, rows=rows)
 
 
 def candidate_scores(
@@ -86,6 +123,7 @@ def candidate_scores(
     params: RobustRegistrationSolverParams,
     blocked_threshold: int = 16384,
     clock: Optional[_StageClock] = None,
+    shard: Optional[PairsShard] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-vertex ranking for the subgraph selection and the max core number.
 
@@ -93,22 +131,30 @@ def candidate_scores(
     adjacency exists only as bit words, only the top core is found (binary
     search), and the score is the degree, lifted by N inside the top core;
     at or below it the dense adjacency is peeled level by level and the score
-    is the core number. Returns (score (N,) int32, max_core scalar int32).
+    is the core number. With a ``shard`` this rank builds only its word rows
+    (or its row band of the dense adjacency, packed) and every degree is
+    summed over the shard's axis. Returns (score (N,) int32, max_core scalar
+    int32), equal on every rank.
     """
     clock = clock or _StageClock(None, src.device)
     n = src.shape[-1]
     if n > blocked_threshold:
-        adj_bits = _adjacency_bits_fast(src, dst, params)
+        adj_bits = _adjacency_bits_fast(src, dst, params, shard)
+        degrees = _degrees(shard, adj_bits)
         clock.mark("bits")
-        top_mask, max_core = max_core_from_bits(adj_bits, n)
+        top_mask, max_core = max_core_from_bits(adj_bits, n, degrees=degrees)
         clock.mark("max_core")
-        deg0 = active_degrees(adj_bits, torch.ones_like(top_mask))
+        deg0 = degrees(torch.ones_like(top_mask))
         score = torch.where(top_mask, deg0 + n, deg0)[0]
         max_core = max_core[0]
     else:
-        adj = trim_adjacency_dense(src, dst, params.noise_bound, params.cbar2)
+        # the dense adjacency (this rank's band of rows [32 w0, 32 w1)),
+        # packed to the words that kcore.core_numbers peels
+        rows = (0, n) if shard is None else (32 * shard.w0, min(32 * shard.w1, n))
+        words = pack_bits_u32_rows(trim_adjacency_dense(
+            src, dst, params.noise_bound, params.cbar2, rows=rows))
         clock.mark("bits")
-        score = core_numbers(adj)[0]
+        score = core_numbers_from_bits(words, n, degrees=_degrees(shard, words))[0]
         max_core = score.amax()
         clock.mark("max_core")
     return score, max_core
@@ -142,10 +188,11 @@ def _large_registration_impl(
     subgraph_size: int,
     blocked_threshold: int = 16384,
     stage_ms: Optional[Dict[str, float]] = None,
+    shard: Optional[PairsShard] = None,
 ) -> LargeSolveResult:
     n = src.shape[-1]
     clock = _StageClock(stage_ms, src.device)
-    score, max_core = candidate_scores(src, dst, params, blocked_threshold, clock)
+    score, max_core = candidate_scores(src, dst, params, blocked_threshold, clock, shard)
 
     # Reduce to the densest subgraph: the top `subgraph_size` vertices by
     # score contain the maximum clique when subgraph_size > max_core.
@@ -168,11 +215,12 @@ def _large_registration_impl(
     )
 
 
-def _kcore_prune(src, dst, params, k: int) -> torch.Tensor:
-    """(N,) bool ``k``-core survivor mask of the TRIM graph, on the bit words."""
+def _kcore_prune(src, dst, params, k: int, shard: Optional[PairsShard] = None) -> torch.Tensor:
+    """(N,) bool ``k``-core survivor mask of the TRIM graph, on the bit words
+    (this rank's slab of them, with a ``shard``)."""
     n = src.shape[-1]
-    adj_bits = _adjacency_bits_fast(src, dst, params)
-    return kcore_mask_from_bits(adj_bits, n, k)[0]
+    adj_bits = _adjacency_bits_fast(src, dst, params, shard)
+    return kcore_mask_from_bits(adj_bits, n, k, degrees=_degrees(shard, adj_bits))[0]
 
 
 def _sub_adjacency_bits(src_sel, dst_sel, params) -> torch.Tensor:
@@ -190,6 +238,26 @@ def _unpack_bits_rows(bits, n: int) -> np.ndarray:
     rows = np.unpackbits(bytes_, axis=-1, bitorder="little")  # (W, N, 32)
     rows = np.moveaxis(rows, -1, 1).reshape(b.shape[0] * 32, b.shape[1])
     return rows[:n].astype(bool)
+
+
+def _exact_search(src_sel, dst_sel, params, time_limit: float,
+                  num_threads: int) -> torch.Tensor:
+    """Host exact maximum clique of the TRIM graph of the gathered ``(1, 3,
+    m)`` points: dense bitset search below the reference's ``adj_limit``,
+    sparse above. Returns the clique's int64 indices into the m points."""
+    m = src_sel.shape[-1]
+    sub_adj = _unpack_bits_rows(
+        _sub_adjacency_bits(src_sel.contiguous(), dst_sel.contiguous(), params), m)
+    if m < 20000:  # reference PMC adj_limit (graph.cc:43)
+        clique_local, _ = _exact.exact_max_clique(
+            sub_adj, time_limit=time_limit, num_threads=num_threads
+        )
+    else:
+        indptr, indices = _exact.adjacency_to_csr(sub_adj)
+        clique_local, _ = _exact.exact_max_clique_sparse(
+            indptr, indices, m, time_limit=time_limit, num_threads=num_threads
+        )
+    return torch.as_tensor(np.asarray(clique_local), dtype=torch.int64)
 
 
 def solve_large_exact(
@@ -213,21 +281,23 @@ def solve_large_exact(
       4. device rotation/translation stages over the exact clique mask.
 
     ``src``/``dst`` are (3, N); ``device`` is CUDA unless named. On a search
-    cut by ``time_limit`` the best clique found so far is used. Returns a
+    cut by ``time_limit`` the best clique found so far is used. With a
+    ``mesh`` steps 1-2 run row-sharded over ``pairs_axis`` (the module
+    docstring), step 3 on the axis' first rank, whose clique every rank of
+    the axis receives, and step 4 on every rank. Returns a
     :class:`LargeSolveResult` with unbatched fields.
     """
-    del pairs_axis
-    _require_single_device(mesh)
     dev = resolve_device(device)
     src, dst = _points(src, dst, dev)
     n = src.shape[-1]
+    shard = PairsShard.of(mesh, pairs_axis, n)
 
     # 1. heuristic lower bound (the greedy clique is a genuine clique)
-    heu_res = _large_registration_impl(src, dst, params, 2048)
+    heu_res = _large_registration_impl(src, dst, params, 2048, shard=shard)
     lb = int(heu_res.clique_size)
 
     # 2. provably safe pruning to the (lb-1)-core
-    survivors = _kcore_prune(src, dst, params, lb - 1)
+    survivors = _kcore_prune(src, dst, params, lb - 1, shard)
     idx = torch.nonzero(survivors)[:, 0]
     m = int(idx.shape[0])
     if m == 0:
@@ -235,21 +305,16 @@ def solve_large_exact(
 
     # 3. exact search on the survivor subgraph (adjacency re-derived from the
     # gathered points on the device, fetched as packed bits: m^2/8 bytes)
-    sub_bits = _sub_adjacency_bits(
-        src[..., idx].contiguous(), dst[..., idx].contiguous(), params
-    )
-    sub_adj = _unpack_bits_rows(sub_bits, m)
-    if m < 20000:  # reference PMC adj_limit (graph.cc:43)
-        clique_local, _ = _exact.exact_max_clique(
-            sub_adj, time_limit=time_limit, num_threads=num_threads
-        )
-    else:
-        indptr, indices = _exact.adjacency_to_csr(sub_adj)
-        clique_local, _ = _exact.exact_max_clique_sparse(
-            indptr, indices, m, time_limit=time_limit, num_threads=num_threads
-        )
+    in_clique = torch.zeros((m,), dtype=torch.bool, device=dev)
+    if shard is None or shard.mesh.coords[shard.axis] == 0:
+        in_clique[_exact_search(src[..., idx], dst[..., idx], params, time_limit,
+                                num_threads).to(dev)] = True
+    if shard is not None:
+        # a search cut by its clock may end elsewhere on another rank: one
+        # rank searches and the others take its clique
+        in_clique = shard.mesh.broadcast(in_clique, shard.axis)
     clique_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
-    clique_mask[idx[torch.as_tensor(clique_local, dtype=torch.int64, device=dev)]] = True
+    clique_mask[idx[in_clique]] = True
 
     # 4. rotation/translation over the exact clique
     sol = _rt_stage(src, dst, clique_mask, params)
@@ -272,10 +337,12 @@ def solve_large_sharded(
     stage_ms: Optional[Dict[str, float]] = None,
 ) -> LargeSolveResult:
     """Known-scale registration of one huge problem on ``device`` (CUDA unless
-    named).
+    named), with the O(N^2) structure row-sharded over ``mesh``'s
+    ``pairs_axis`` when a mesh is given (a port ``Mesh``, see the module
+    docstring; every rank of the axis calls this with the same inputs and
+    gets the same result).
 
-    ``src``/``dst`` are (3, N) with N typically 10K-100K. Only ``mesh=None``
-    is ported: a mesh raises ``NotImplementedError``.
+    ``src``/``dst`` are (3, N) with N typically 10K-100K.
 
     ``subgraph_size`` caps the clique candidate set: when the true inlier set
     is larger, the clique is truncated to the top ``subgraph_size`` vertices
@@ -286,10 +353,9 @@ def solve_large_sharded(
     after every stage. Returns a :class:`LargeSolveResult` with unbatched
     fields.
     """
-    del pairs_axis
-    _require_single_device(mesh)
     dev = resolve_device(device)
     src, dst = _points(src, dst, dev)
+    shard = PairsShard.of(mesh, pairs_axis, src.shape[-1])
     return _large_registration_impl(
-        src, dst, params, subgraph_size, blocked_threshold, stage_ms
+        src, dst, params, subgraph_size, blocked_threshold, stage_ms, shard
     )

@@ -110,10 +110,26 @@ def test_plan_guards_raise_as_jax():
     # 'auto' falls back to dense on the same ratio
     d = FPFHEstimation(device="cpu").computeFPFHFeatures(pts, 0.02, 0.3)
     assert d.shape == (len(pts), 33)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh that is no port Mesh raises; a (1, 1) mesh without a process
+    # group gives the mesh=None result
+    from teaserpp_tpu_torch.parallel.multihost import make_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         FPFHEstimation(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         t_normals.estimate_normals_pruned(pts, 0.1, plan, mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
+        t_fpfh.compute_fpfh_pruned(pts, normals, 0.1, plan, mesh=object(), device="cpu")
+    mesh = make_mesh()
+    for a, b in zip(t_normals.estimate_normals_pruned(pts, 0.1, plan, mesh=mesh, device="cpu"),
+                    t_normals.estimate_normals_pruned(pts, 0.1, plan, device="cpu")):
+        assert torch.equal(a, b)
+    assert torch.equal(t_fpfh.compute_fpfh_pruned(pts, normals, 0.1, plan, mesh=mesh, device="cpu"),
+                       t_fpfh.compute_fpfh_pruned(pts, normals, 0.1, plan, device="cpu"))
+    assert np.array_equal(
+        FPFHEstimation(neighbor_mode="grid", mesh=mesh, device="cpu").computeFPFHFeatures(
+            pts, 0.1, 0.1),
+        FPFHEstimation(neighbor_mode="grid", device="cpu").computeFPFHFeatures(pts, 0.1, 0.1))
     with pytest.raises(TypeError, match="torch.Tensor"):
         t_normals.estimate_normals(pts, 0.1)
 

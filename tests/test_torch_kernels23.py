@@ -107,10 +107,13 @@ def test_wrappers_on_cpu_are_plain_and_uncounted(rng):
     src, dst = _clouds(rng, 96, 40, batch=2)
     s, d = _t(src), _t(dst)
     before = dict(ck.LAUNCHES)
-    assert set(before) == {"trim_bits", "trim_degrees", "trim_adjacency_i8"}
+    assert set(before) == {"trim_bits", "trim_bits_slab", "trim_degrees", "trim_adjacency_i8"}
     assert torch.equal(ck.trim_degrees(s, d, BETA), ck.trim_degrees_plain(s, d, BETA))
     assert torch.equal(ck.trim_adjacency_i8(s, d, BETA),
                        ck.trim_adjacency_i8_plain(s, d, BETA))
+    valid = torch.ones((2, 96), dtype=torch.bool)
+    assert torch.equal(ck.trim_bits(s, d, valid, BETA, rows=(1, 3)),
+                       ck.trim_adjacency_bits_plain(s, d, valid, BETA, rows=(1, 3)))
     assert ck.LAUNCHES == before
 
 

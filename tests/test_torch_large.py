@@ -192,11 +192,21 @@ def test_large_result_to_numpy_takes_either_package(problem):
 
 
 def test_mesh_and_bad_input_raise(problem, monkeypatch):
+    """A mesh that is no port Mesh raises TypeError; a (1, 1) mesh without a
+    process group gives the mesh=None result."""
+    from teaserpp_tpu_torch.parallel.multihost import make_mesh
+
     src, dst, *_ = problem
     params = params_from_jax(_params(0.01))
+    mesh = make_mesh()
     for solve in (solve_large_sharded, solve_large_exact):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 13"):
+        with pytest.raises(TypeError, match="Mesh"):
             solve(src, dst, params, mesh=object(), device="cpu")
+        got = large_result_to_numpy(solve(src, dst, params, mesh=mesh, device="cpu"))
+        want = large_result_to_numpy(solve(src, dst, params, device="cpu"))
+        assert int(got.max_core) == int(want.max_core)
+        for g, w in zip(got.solution, want.solution):
+            assert np.asarray(g).tobytes() == np.asarray(w).tobytes()
         with pytest.raises(ValueError, match="3, N"):
             solve(src[None], dst[None], params, device="cpu")
         with pytest.raises(ValueError, match="3, N"):

@@ -1,8 +1,9 @@
 """The port stands alone: no import of JAX or of the JAX package, CPU solves
 (batched known and unknown scale, the batched greedy clique, huge-N, exact,
 the facade, ICP), PLY I/O and the FPFH front end, matcher and command-line
-tool and the DRS certifier with JAX blocked, its own native clique library,
-and no silent fallback to the CPU."""
+tool and the DRS certifier with JAX blocked, the mesh paths on a (1, 1)
+mesh with JAX blocked, its own native clique library, and no silent fallback
+to the CPU."""
 
 import ast
 import pathlib
@@ -174,6 +175,52 @@ def test_cpu_solve_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("solved")
     assert _jax_native_dir_state() == before
+
+
+MESH_SOLVE_WITH_JAX_BLOCKED = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["teaserpp_tpu"] = None
+import numpy as np, torch
+torch.set_num_threads(1)
+from teaserpp_tpu_torch import (InlierSelectionMode, RobustRegistrationSolverParams,
+                                solve_large_sharded)
+from teaserpp_tpu_torch.parallel import solve_batch_sharded
+from teaserpp_tpu_torch.parallel.multihost import make_mesh
+rng = np.random.default_rng(1)
+src = rng.uniform(-1, 1, (3, 200))
+dst = src + np.array([0.1, -0.2, 0.05])[:, None] + rng.uniform(-5e-3, 5e-3, src.shape)
+dst[:, :120] = rng.uniform(-3, 3, (3, 120))
+params = RobustRegistrationSolverParams(
+    noise_bound=0.01, estimate_scaling=False,
+    inlier_selection_mode=InlierSelectionMode.KCORE_HEU, kcore_heuristic_threshold=0.0)
+mesh = make_mesh()
+assert mesh.shape == {"batch": 1, "pairs": 1}
+for threshold in (64, 16384):
+    got = solve_large_sharded(src, dst, params, mesh=mesh, blocked_threshold=threshold,
+                              device="cpu")
+    want = solve_large_sharded(src, dst, params, blocked_threshold=threshold, device="cpu")
+    assert torch.equal(got.solution.rotation, want.solution.rotation)
+    assert torch.equal(got.solution.clique_mask, want.solution.clique_mask)
+    assert np.abs(got.solution.rotation.numpy() - np.eye(3)).max() < 1e-2
+from teaserpp_tpu_torch import solve_batch
+sol = solve_batch_sharded(src[None], dst[None], params, mesh, device="cpu")
+ref = solve_batch(src[None], dst[None], params, device="cpu")
+assert all(torch.equal(a, b) for a, b in zip(sol, ref))
+assert "jaxlib" not in sys.modules
+print("solved")
+"""
+
+
+def test_mesh_solve_with_jax_blocked():
+    """solve_large_sharded (both branches) and solve_batch_sharded on a (1, 1)
+    mesh, with JAX and the JAX package unimportable: the mesh=None result."""
+    proc = subprocess.run(
+        [sys.executable, "-c", MESH_SOLVE_WITH_JAX_BLOCKED],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("solved")
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
