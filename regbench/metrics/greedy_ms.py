@@ -1,0 +1,7 @@
+"""Median ms a request of the program's ``greedy`` stage, by its own stage
+timer (host wall time, the device synchronised at each mark), over the
+requests of the window after the profiled ones."""
+
+
+def read(layers):
+    return layers.stage_median_ms("greedy")
