@@ -34,7 +34,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    launch's rows, on the filled allocator block: the two halves of
    (1, 100000) (timed, with their bound), and on (7, 333)'s scattered
    validity the ragged last rows, one row, an empty slab and a first slab,
-   and the second word row of (2, 33);
+   and the second word row of (2, 33). The greedy clique kernel
+   (``greedy_clique``) against its plain version, member words and sizes
+   exactly, on the filled allocator block, timed: K1's words of phase 4's
+   512 bunny problems with 64 seeds, the B = 1 dense sub-adjacency of
+   ``solve_large_sharded`` (the top 2,048 vertices of the N=100,000
+   problem), and (7, 333)'s scattered validity with two problems skipped;
+   beside each, the bound of the row words its lanes read and of the words
+   read once. Its wrapper refuses a wrong dtype, shape or device, and its
+   launch rows too long for shared memory, counting nothing;
 4. batched path: ``solve_batch`` on 512 bunny-shaped problems (N=1889, 1700
    outlier draws with replacement, so ~59% outliers; bench.py's parameters)
    with every launch count set to 0 just before and read just after; every
@@ -45,12 +53,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 5a. clique-mode batch: ``solve_batch`` on the same 512 problems with the
    library's default selector (PMC_EXACT, which the batched path runs as
    the greedy clique over 64 seeds), best of 3 windows of 3 solves, stage
-   times and peak memory; the same gate, K1 launched once a solve, the
-   masks of 8 problems cliques of K1's graph (its plain version's words,
-   on the host); PMC_HEU and KCORE_HEU 0.5 give the same masks; KCORE_HEU
-   at a threshold under every problem's max-core share gives the top
-   k-core of phase 4, and at the median share the top k-core where the
-   shortcut fires and the greedy clique elsewhere (the count printed);
+   times and peak memory; the same gate, K1 and the greedy clique kernel
+   launched once a solve each, the masks of 8 problems cliques of K1's
+   graph (its plain version's words, on the host); PMC_HEU and KCORE_HEU
+   0.5 give the same masks; KCORE_HEU at a threshold under every problem's
+   max-core share gives the top k-core of phase 4, and at the median share
+   the top k-core where the shortcut fires and the greedy clique elsewhere
+   (the count printed);
    one more solve under ``torch.profiler`` gives the device's busy time,
    idle share and the kernels that take the most time; then the CPU run of
    4 problems gives equal masks (R and t within 1e-4);
@@ -104,7 +113,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     at threshold 0, noise bound 0.01); gated on <0.1 deg and <0.01 m
     against the planted transform. At synth100k's ~13K matches the solve
     takes its dense branch (N <= 16,384, as in JAX), which launches no
-    kernel, so the phase requires none (K1 above 16,384); prints the
+    TRIM kernel, so the phase requires none (K1 above 16,384), only the
+    greedy clique kernel on the subgraph; prints the
     correspondence and clique counts beside the JAX package's, seconds per
     stage (best of 3 after a first run), peak memory, and one more run of
     the stages up to the matches under ``torch.profiler`` (busy time, idle
@@ -159,8 +169,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     over ``pairs`` (K1 as row slabs), (b) phase 16's synth100k pair through
     ``FPFHEstimation(neighbor_mode="grid")`` with its query blocks over both
     ranks, the matcher and ``solve_large_sharded`` on the (1, 2) mesh (the
-    dense branch: no kernel), (c) ``solve_batch_sharded`` on phase 4's 512
-    problems on a (2, 1) mesh over ``batch``. Every rank's results equal
+    dense branch: no TRIM kernel), (c) ``solve_batch_sharded`` on phase
+    4's 512 problems on a (2, 1) mesh over ``batch``. Every rank's results equal
     this process's ``mesh=None`` runs on the card bit for bit (on (c) each
     rank's half equals ``solve_batch`` of that half; the whole batch equals
     phase 4's within 1e-4 with equal masks), (a) and (b) pass phases 6 and
@@ -176,9 +186,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Phases 10-12, 15 and 18-23 run no TRIM kernel (as in the JAX package,
 their route reaches no Pallas kernel): each sets the launch counts to 0
-before and requires them to read 0 after. Then one ``{"kernels": [...]}``
-line and,
-last, the device line. Without CUDA, or without the package beside it, it
+before and requires them to read 0 after; phases 10 and 11 (PMC_EXACT's
+host search) also no greedy clique kernel. Then one ``{"kernels": [...]}``
+line and, last, the device line. Without CUDA, or without the package beside it, it
 exits non-zero and prints no result.
 """
 
@@ -207,6 +217,9 @@ WIDE_N = 46341  # the least N whose (N, N) int8 output passes 2^31 bytes
 EXACT_N = LARGE_N  # the exact phase's size; cut it if the host search outgrows the budget
 EXACT_TIME_LIMIT_S = 120.0
 LARGE_PARITY_N = 2000
+GREEDY_SEEDS = 64  # the library's max_clique_heuristic_seeds
+SUBGRAPH_M = 2048  # solve_large_sharded's subgraph_size
+GREEDY_SKIPPED = (1, 4)  # problems of (7, 333) whose greedy is skipped
 PARITY_PROBLEMS = 4
 PARITY_TOL = 1e-4  # Frobenius (rotation) / Euclidean (translation), as the tests state
 FACADE_SCALE = 1.4  # the defaults phase's scale (tests/test_registration_e2e.py's)
@@ -727,6 +740,91 @@ def kernel_phase(device, seed: int = 0) -> dict:
             case=name, **shape_of(s), **res, bound_ms=bound_ms, bound_by=bound_by,
             bound_pairs=pairs, bound_terms_ms=terms))
         del s, d
+
+    results["greedy_clique"] = greedy_phase(device, inputs)
+    return results
+
+
+def greedy_cases(device, inputs: dict) -> list:
+    """The greedy clique kernel's inputs on ``device``, [(case, rows, order,
+    allowed)], each with its path's seeds: K1's words of phase 4's bunny
+    problems, ``solve_large_sharded``'s dense sub-adjacency of the
+    N=100,000 problem (the top ``SUBGRAPH_M`` by score), and (7, 333)'s
+    scattered validity with the problems ``GREEDY_SKIPPED`` skipped."""
+    import torch
+    from teaserpp_tpu_torch.clique.heuristic import greedy_order_and_allowed
+    from teaserpp_tpu_torch.clique.kcore import (
+        core_numbers,
+        core_numbers_from_bits,
+        pack_bits_u32,
+    )
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+    from teaserpp_tpu_torch.ops.tims import trim_adjacency_dense, trim_beta
+    from teaserpp_tpu_torch.parallel.sharded import candidate_scores, top_candidates
+
+    def from_words(name, words, n, valid, skip=None):
+        core = core_numbers_from_bits(words, n, valid)
+        order, allowed = greedy_order_and_allowed(core, valid, skip)
+        return name, words.transpose(-1, -2).contiguous(), order, allowed
+
+    src, dst = _to(device, *make_problems(BATCH, N_POINTS))
+    valid = torch.ones(src.shape[0], src.shape[-1], dtype=torch.bool, device=device)
+    cases = [from_words("bunny_batch", ck.trim_bits(src, dst, valid, trim_beta(NOISE_BOUND)),
+                        src.shape[-1], valid)]
+    del src, dst, valid
+
+    src, dst = _to(device, *inputs["large"][:2])
+    score, _ = candidate_scores(src, dst, large_params())
+    top = top_candidates(score, min(SUBGRAPH_M, src.shape[-1]))
+    sub = trim_adjacency_dense(src[..., top], dst[..., top], LARGE_NOISE_BOUND)
+    order, allowed = greedy_order_and_allowed(core_numbers(sub))
+    cases.append(("sharded_subgraph", pack_bits_u32(sub), order, allowed))
+    del src, dst, sub
+
+    s_np, d_np, v_np, beta = inputs["scattered"]
+    src, dst, valid = _to(device, s_np, d_np, v_np)
+    skip = torch.zeros(src.shape[0], dtype=torch.bool, device=device)
+    skip[list(GREEDY_SKIPPED)] = True
+    cases.append(from_words("padded_odd", ck.trim_bits(src, dst, valid, beta),
+                            src.shape[-1], valid, skip))
+    return cases
+
+
+def greedy_phase(device, inputs: dict) -> list:
+    """The greedy clique kernel against its plain version at
+    :func:`greedy_cases`' shapes: member words and sizes exactly equal (the
+    members on the allocator block filled with a pattern), both timed, and
+    two least times at the memory's rate: the row words its lanes' steps
+    read, sum over lanes of (size - 1) W 4 bytes (the bound), and the words
+    read once."""
+    import torch
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+
+    results = []
+    for name, rows, order, allowed in greedy_cases(device, inputs):
+        bsz, n, words = rows.shape
+        seeds = min(GREEDY_SEEDS, n)
+        poisoned_at = _poison_allocator(device, (bsz, seeds, words), torch.int32)
+        members, sizes = ck.greedy_clique(rows, order, allowed, seeds)
+        if poisoned_at is not None and members.data_ptr() != poisoned_at:
+            raise AssertionError("the members did not land on the block filled with the pattern")
+        want_members, want_sizes = ck.greedy_clique_plain(rows, order, allowed, seeds)
+        _sync(device)
+        differing = int((members != want_members).sum() + (sizes != want_sizes).sum())
+        row_bytes = int((sizes.long() - 1).clamp(min=0).sum()) * words * 4
+        results.append(dict(
+            case=name, batch=bsz, n=n, seeds=seeds, equal=differing == 0,
+            elements_differing=differing,
+            max_abs_err=max(_max_abs_diff(members, want_members),
+                            _max_abs_diff(sizes, want_sizes)),
+            size_min=int(sizes.min()), size_max=int(sizes.max()),
+            ms=time_ms(lambda: ck.greedy_clique(rows, order, allowed, seeds), 20, device),
+            plain_ms=time_ms(lambda: ck.greedy_clique_plain(rows, order, allowed, seeds), 3,
+                             device),
+            bound_ms=row_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            bound_row_bytes=row_bytes,
+            words_once_ms=rows.numel() * 4 / HBM_BYTES_PER_S * 1e3))
+        del members, sizes, want_members, want_sizes
     return results
 
 
@@ -779,7 +877,9 @@ def schedule_phase() -> dict:
 
 def refusal_phase(device) -> dict:
     """What the tile kernels' launch does not take raises, and counts no
-    launch: a batch beyond the grid's second axis, for all three."""
+    launch: a batch beyond the grid's second axis, for all three; and the
+    greedy clique's wrong dtype, shape and device, and rows too long for
+    its launch."""
     import torch
     from teaserpp_tpu_torch.ops import cuda_kernels as ck
 
@@ -797,6 +897,26 @@ def refusal_phase(device) -> dict:
             refused[name] = str(exc)
         else:
             raise AssertionError(f"{name} took a batch of {bsz}")
+
+    # the greedy clique: its wrapper's checks, and a launch whose rows pass
+    # a block's shared memory (n = 1,000,000: 31,250 words a row; the launch
+    # refuses it before it reads a pointer)
+    rows = torch.zeros(2, 40, 2, dtype=torch.int32, device=device)
+    order = torch.arange(40, dtype=torch.int32, device=device).repeat(2, 1)
+    allowed = torch.full((2, 2), -1, dtype=torch.int32, device=device)
+    for name, call in (
+            ("greedy_clique dtype", lambda: ck.greedy_clique(rows.long(), order, allowed, 4)),
+            ("greedy_clique shape", lambda: ck.greedy_clique(rows, order[:, 1:].contiguous(),
+                                                             allowed, 4)),
+            ("greedy_clique device", lambda: ck.greedy_clique(rows, order.cpu(), allowed, 4)),
+            ("greedy_clique launch", lambda: ck._launch(
+                "greedy_clique", "greedy_clique", device, 0, 0, 0, 0, 0, 1, 1_000_000, 64))):
+        try:
+            call()
+        except (TypeError, ValueError, RuntimeError) as exc:
+            refused[name] = str(exc)
+        else:
+            raise AssertionError(f"{name} was taken")
     if any(ck.LAUNCHES.values()):
         raise AssertionError(f"a refused launch was counted: {ck.LAUNCHES}")
     return refused
@@ -1112,11 +1232,15 @@ def large_parity_phase(device, n: int):
     return out
 
 
+TRIM_KERNELS = ("trim_bits", "trim_bits_slab", "trim_degrees", "trim_adjacency_i8")
+
+
 def _require_no_launch(launches: dict, path: str) -> None:
     """A route that reaches no TRIM kernel, as in the JAX package (the
     facade, the unknown-scale batch, the front end at <= 16,384 matches): a
-    launch there means the route changed."""
-    if any(launches.values()):
+    launch there means the route changed. (The front end's dense branch
+    runs the greedy clique kernel on its subgraph.)"""
+    if any(launches[k] for k in TRIM_KERNELS):
         raise AssertionError(f"{path} launched a TRIM kernel: {launches}")
 
 
@@ -1136,6 +1260,8 @@ def facade_phase(device, scale: float, repeats: int = 3) -> dict:
     first_s = time.perf_counter() - t0
     launches = dict(ck.LAUNCHES)
     _require_no_launch(launches, "RobustRegistrationSolver.solve")
+    if launches["greedy_clique"]:  # PMC_EXACT's host search, not the greedy
+        raise AssertionError(f"the facade launched the greedy clique kernel: {launches}")
 
     out = dict(
         n=N_POINTS, estimate_scaling=params.estimate_scaling, true_scale=scale,
@@ -1329,11 +1455,11 @@ def _host_clique_check(src, dst, masks, problems: int) -> list:
 def clique_batch_phase(device, src, dst, top_core_masks, repeats: int = 3):
     """The clique-mode batch: ``solve_batch`` on the batched-bunny problems
     under the library's default selector (PMC_EXACT -> the batched greedy
-    clique), gated on accuracy, K1 launched once a solve, the masks of 8
-    problems cliques of K1's graph on the host; PMC_HEU and KCORE_HEU 0.5
-    give the same masks; KCORE_HEU where the shortcut fires on every
-    problem gives the top k-core, and where it fires on some, the top k-core
-    there and the greedy clique elsewhere."""
+    clique), gated on accuracy, K1 and the greedy clique kernel launched
+    once a solve each, the masks of 8 problems cliques of K1's graph on the
+    host; PMC_HEU and KCORE_HEU 0.5 give the same masks; KCORE_HEU where the
+    shortcut fires on every problem gives the top k-core, and where it fires
+    on some, the top k-core there and the greedy clique elsewhere."""
     import torch
     from teaserpp_tpu_torch import solve_batch
     from teaserpp_tpu_torch.clique.kcore import core_numbers_from_bits
@@ -1359,8 +1485,9 @@ def clique_batch_phase(device, src, dst, top_core_masks, repeats: int = 3):
     peak_gb = ((torch.cuda.max_memory_allocated(device) - base_bytes) / 1e9
                if on_card else None)
     _require_launched(device, launches, "solve_batch (clique modes)", ["trim_bits"])
-    if on_card and launches["trim_bits"] != 1:
-        raise AssertionError(f"K1 launched {launches['trim_bits']} times in one solve")
+    for kernel in ("trim_bits", "greedy_clique"):
+        if on_card and launches[kernel] != 1:
+            raise AssertionError(f"{kernel} launched {launches[kernel]} times in one solve")
 
     sol_np = solution_to_numpy(sol)
     if not (np.isfinite(sol_np.rotation).all() and np.isfinite(sol_np.translation).all()):
@@ -1382,9 +1509,10 @@ def clique_batch_phase(device, src, dst, top_core_masks, repeats: int = 3):
             solve_batch(src_d, dst_d, params, device=device)
         _sync(device)
         windows.append(time.perf_counter() - t0)
-    if on_card and ck.LAUNCHES["trim_bits"] != 3 * repeats:
-        raise AssertionError(f"K1 launched {ck.LAUNCHES['trim_bits']} times in "
-                             f"{3 * repeats} solves")
+    for kernel in ("trim_bits", "greedy_clique"):
+        if on_card and ck.LAUNCHES[kernel] != 3 * repeats:
+            raise AssertionError(f"{kernel} launched {ck.LAUNCHES[kernel]} times in "
+                                 f"{3 * repeats} solves")
     seconds_per_batch = min(windows) / repeats
     stage_ms = {}
     solve_batch(src_d, dst_d, params, device=device, stage_ms=stage_ms)
@@ -1747,7 +1875,7 @@ def frontend_phase(device, n: int = FRONTEND_N, repeats: int = 3):
     peak = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
     # solve_large_sharded takes its bit-word branch (K1) only above
     # blocked_threshold = 16,384 matches, in JAX as here (sharded.py:67); at
-    # synth100k's ~13K the dense branch runs and no kernel is launched
+    # synth100k's ~13K the dense branch runs and no TRIM kernel is launched
     k = len(corr)
     if k > 16384:
         _require_launched(device, launches, "fpfh_frontend", ["trim_bits"])
@@ -2965,6 +3093,8 @@ def main() -> int:
          "teaserpp_tpu/ops/pallas_kernels.py:244", 1),
         ("trim_adjacency_i8", "teaserpp_tpu_torch/csrc/trim_adjacency.cu",
          "teaserpp_tpu/ops/pallas_kernels.py:59", 1),
+        ("greedy_clique", "teaserpp_tpu_torch/csrc/greedy_clique.cu",
+         "none: teaserpp_tpu/clique/heuristic.py's vmapped lax.while_loop", 0),
     ]
     kernels = []
     for name, source, replaces, main_index in entries:

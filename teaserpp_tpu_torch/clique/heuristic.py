@@ -2,15 +2,20 @@
 
 Counterpart of ``teaserpp_tpu/clique/heuristic.py``: ``num_seeds`` greedy
 expansions from the highest-core vertices, each step taking the candidate
-with the highest core number, and the largest clique wins. The JAX package
-``vmap``s one ``while_loop`` over the seeds, and the batched pipeline
-``vmap``s that over the problems; here the lanes are a batch ``(B, S, N)``
-in one Python loop with one host sync a step for the whole batch, and a lane
-whose candidates have run out keeps its state, as a finished ``vmap`` lane
-does.
+with the highest core number (ties to the lowest index), and the largest
+clique wins (the first of equal size). The JAX package ``vmap``s one
+``while_loop`` over the seeds, and the batched pipeline ``vmap``s that over
+the problems; here every lane of every problem runs in one launch of the
+``greedy_clique`` kernel (``ops/cuda_kernels.py``) on the adjacency's packed
+words, with no host sync. A step's pick is the first candidate in the
+problem's core order (core numbers descending, then index ascending), which
+is the JAX argmax's pick; a lane whose candidates have run out stops, as a
+finished ``vmap`` lane keeps its state.
 
-``adj`` is ``(B, N, N)``; an ``(N, N)`` adjacency is a batch of one and
-gets unbatched fields back, as the JAX function's.
+:func:`heuristic_max_clique` takes a dense ``(B, N, N)`` adjacency and packs
+its rows; :func:`heuristic_max_clique_from_bits` takes the row-packed
+``(B, W, N)`` words of K1 (``ops/cuda_kernels.py::trim_bits``) as they are,
+with no unpacked adjacency.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from teaserpp_tpu_torch.clique.kcore import core_numbers
+from teaserpp_tpu_torch.clique.kcore import core_numbers, pack_bits_u32, unpack_bits_u32_rows
+from teaserpp_tpu_torch.ops.cuda_kernels import greedy_clique
 
 
 class HeuristicCliqueResult(NamedTuple):
@@ -29,53 +35,57 @@ class HeuristicCliqueResult(NamedTuple):
     core: torch.Tensor  # (B, N) int32 core numbers (reused by callers)
 
 
-def _greedy_from_seed(
-    seeds: torch.Tensor, adj: torch.Tensor, score: torch.Tensor, skip: torch.Tensor
-) -> torch.Tensor:
-    """Grow one clique per lane by repeated best-candidate picks.
-
-    ``seeds`` (B, S) int64, ``adj`` (B, N, N) bool, ``score`` (B, N) int32 ->
-    members (B, S, N) bool. ``skip`` (B,) bool empties a problem's initial
-    candidate sets, so its lanes run no step and each clique is its seed alone.
-
-    Each vertex's adjacency row is held as 8-byte words (the bool row padded
-    to a multiple of 8 with non-edges), so a step gathers its picks' rows and
-    ANDs them into the candidates a word at a time; the scores are int16
-    where they fit. The picks are the same: padded columns are never
-    candidates.
+def greedy_order_and_allowed(
+    core: torch.Tensor, valid: Optional[torch.Tensor] = None, skip=None
+) -> tuple:
+    """The ``greedy_clique`` kernel's ``order`` and ``allowed`` from ``(B, N)``
+    int32 core numbers: each problem's core order (a stable descending sort:
+    core numbers descending, ties by index; its first entries are the
+    seeds), and the packed vertices that may be candidates, ``valid`` (every
+    vertex when None) and none where ``skip`` (a (B,) or scalar bool) is set.
     """
-    bsz, num = seeds.shape
-    n = adj.shape[-1]
-    dev = adj.device
-    words = -(-n // 8)
-    if n % 8 == 0:
-        rows = adj.reshape(bsz * n, n).contiguous().view(torch.int64)
-    else:
-        rows = torch.zeros((bsz * n, words * 8), dtype=torch.bool, device=dev)
-        rows[:, :n] = adj.reshape(bsz * n, n)
-        rows = rows.view(torch.int64)  # (B N, words)
-    first_row = torch.arange(bsz, device=dev)[:, None] * n  # (B, 1)
+    bsz, n = core.shape
+    allowed = pack_bits_u32(torch.ones((bsz, n), dtype=torch.bool, device=core.device)
+                            if valid is None else valid)
+    if skip is not None:
+        skip = torch.as_tensor(skip, dtype=torch.bool, device=core.device).expand(bsz)
+        allowed = allowed.masked_fill(skip[:, None], 0)
+    order = torch.sort(core, dim=-1, descending=True, stable=True).indices.to(torch.int32)
+    return order, allowed
 
-    def rows_of(v):  # (B, S) vertices -> (B, S, words) their adjacency rows
-        return rows.index_select(0, (first_row + v).reshape(-1)).view(bsz, num, words)
 
-    cand = rows_of(seeds).masked_fill_(skip[:, None, None], 0)
-    sdt = torch.int16 if n < 2 ** 15 else torch.int32
-    padded = torch.full((bsz, 1, words * 8), -1, dtype=sdt, device=dev)
-    padded[:, 0, :n] = score
-    neg = torch.tensor(-1, dtype=sdt, device=dev)
-    member = torch.zeros((bsz * num, n + 1), dtype=torch.bool, device=dev)  # column n: no pick
-    member.scatter_(1, seeds.reshape(-1, 1), True)
-    while True:
-        running = cand.any(dim=-1)
-        if not bool(running.any()):  # the step's one host sync
-            return member[:, :n].view(bsz, num, n)
-        # argmax takes the first maximum, as jnp.argmax does; a finished lane
-        # (all -1) records its pick in the spare column n and ANDs an empty
-        # set with the row it picked, so its state stays as it is
-        pick = torch.argmax(torch.where(cand.view(torch.bool), padded, neg), dim=-1)
-        member.scatter_(1, torch.where(running, pick, n).reshape(-1, 1), True)
-        cand = cand & rows_of(pick)
+def _best_clique(rows, n, core, valid, num_seeds, skip) -> HeuristicCliqueResult:
+    """The greedy over adjacency rows ``(B, N, W)`` int32 (bit ``j`` of word
+    ``[b, v, w]``: vertex ``32 w + j`` is adjacent to ``v``)."""
+    bsz, dev = rows.shape[0], rows.device
+    order, allowed = greedy_order_and_allowed(core, valid, skip)
+    members, sizes = greedy_clique(rows, order, allowed, min(num_seeds, n))
+    best = torch.argmax(sizes, dim=-1)  # the first largest, as jnp.argmax
+    lanes = torch.arange(bsz, device=dev)
+    mask = unpack_bits_u32_rows(members[lanes, best][..., None], n)[..., 0]
+    if valid is not None:
+        mask = mask & valid
+    return HeuristicCliqueResult(mask=mask, size=sizes[lanes, best],
+                                 max_core=core.amax(dim=-1), core=core)
+
+
+def heuristic_max_clique_from_bits(
+    adj_bits: torch.Tensor,
+    n: int,
+    core: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    num_seeds: int = 64,
+    skip: Optional[torch.Tensor] = None,
+) -> HeuristicCliqueResult:
+    """Best clique over ``num_seeds`` greedy expansions a problem, on the
+    row-packed ``(B, W, N)`` int32 words of a symmetric adjacency (bit ``b``
+    of word ``[p, w, j]``: pair ``(32 w + b, j)``), with its ``(B, N)``
+    int32 core numbers. By symmetry the words' transpose holds each
+    vertex's row as ``W`` consecutive words, the kernel's layout: one copy
+    of the words. ``valid`` and ``skip`` as in :func:`heuristic_max_clique`.
+    """
+    rows = adj_bits.transpose(-1, -2).contiguous()
+    return _best_clique(rows, n, core, valid, num_seeds, skip)
 
 
 def heuristic_max_clique(
@@ -90,7 +100,9 @@ def heuristic_max_clique(
     Args:
       adj: (B, N, N) bool symmetric adjacency, zero diagonal; (N, N) is a
         batch of one and returns unbatched fields.
-      valid: optional (B, N) vertex validity mask (padding support).
+      valid: optional (B, N) vertex validity mask (padding support): an
+        invalid vertex is never a candidate, and an invalid seed's clique is
+        the seed alone.
       num_seeds: number of high-core seed vertices to expand from.
       skip: optional (B,) bool (a scalar for all); a problem whose flag is
         set runs no greedy step and its mask is meaningless (the caller's
@@ -103,29 +115,9 @@ def heuristic_max_clique(
         adj = adj[None]
         valid = None if valid is None else torch.as_tensor(valid)[None]
         core = None if core is None else core[None]
-    bsz, n = adj.shape[0], adj.shape[-1]
     if valid is not None:
         valid = valid.to(device=adj.device, dtype=torch.bool)
-        adj = adj & valid[:, None, :] & valid[:, :, None]
     if core is None:
         core = core_numbers(adj, valid)
-    max_core = core.amax(dim=-1)
-    num_seeds = min(num_seeds, n)
-    skip = (
-        torch.zeros((bsz,), dtype=torch.bool, device=adj.device)
-        if skip is None
-        else torch.as_tensor(skip, dtype=torch.bool, device=adj.device).expand(bsz)
-    )
-
-    # Seeds: each problem's num_seeds highest-core vertices (ties by index).
-    seeds = torch.sort(core, dim=-1, descending=True, stable=True).indices[:, :num_seeds]
-    members = _greedy_from_seed(seeds, adj, core, skip)
-    sizes = members.sum(dim=-1, dtype=torch.int32)  # (B, S)
-    best = torch.argmax(sizes, dim=-1)
-    rows = torch.arange(bsz, device=adj.device)
-    mask = members[rows, best]
-    if valid is not None:
-        mask = mask & valid
-    res = HeuristicCliqueResult(mask=mask, size=sizes[rows, best], max_core=max_core,
-                                core=core)
+    res = _best_clique(pack_bits_u32(adj), adj.shape[-1], core, valid, num_seeds, skip)
     return HeuristicCliqueResult(*[f[0] for f in res]) if single else res

@@ -10,10 +10,14 @@ Counterpart of ``teaserpp_tpu/ops/pallas_kernels.py``:
   ``pallas_kernels.py::trim_degrees_pallas``, batched.
 * ``trim_adjacency_i8`` (``csrc/trim_adjacency.cu``) replaces
   ``pallas_kernels.py::trim_adjacency_pallas``, batched.
+* ``greedy_clique`` (``csrc/greedy_clique.cu``) replaces no Pallas kernel:
+  it runs every step of the batched greedy clique
+  (``clique/heuristic.py``), which the JAX package writes as a ``vmap``ped
+  ``lax.while_loop``, in one launch.
 
-As in the JAX package, only ``trim_bits`` sits on a solver path; the other
-two are public operations of this module. All three kernels evaluate each
-unordered pair of a problem once, through one tile loop
+As in the JAX package, of the three TRIM kernels only ``trim_bits`` sits on
+a solver path; the other two are public operations of this module. All
+three evaluate each unordered pair of a problem once, through one tile loop
 (``csrc/trim_tile.cuh``) over the upper triangle of 32x32 blocks of pairs,
 and use the result for both orientations.
 
@@ -34,7 +38,8 @@ from teaserpp_tpu_torch.clique.kcore import pack_bits_u32_rows
 from teaserpp_tpu_torch.ops import _build
 from teaserpp_tpu_torch.ops.tims import _pdist2, trim_pred_sq
 
-LAUNCHES = {"trim_bits": 0, "trim_bits_slab": 0, "trim_degrees": 0, "trim_adjacency_i8": 0}
+LAUNCHES = {"trim_bits": 0, "trim_bits_slab": 0, "trim_degrees": 0, "trim_adjacency_i8": 0,
+            "greedy_clique": 0}
 
 # Pairs per chunk of the plain version: bounds its float intermediates to a
 # few hundred MB whatever the batch and N.
@@ -121,6 +126,9 @@ _LAUNCH_ARGTYPES = {
     "trim_degrees": [_POINTER, _POINTER, _POINTER, _INT, _INT, _FLOAT, _POINTER],
     # src, dst, out, batch, n, beta, stream
     "trim_adjacency": [_POINTER, _POINTER, _POINTER, _INT, _INT, _FLOAT, _POINTER],
+    # rows, order, allowed, members, sizes, batch, n, seeds, stream
+    "greedy_clique": [_POINTER, _POINTER, _POINTER, _POINTER, _POINTER, _INT, _INT, _INT,
+                      _POINTER],
 }
 
 
@@ -315,3 +323,87 @@ def trim_adjacency_i8(src: torch.Tensor, dst: torch.Tensor, beta: float) -> torc
     _launch("trim_adjacency", "trim_adjacency_i8", src.device, src.data_ptr(),
             dst.data_ptr(), out.data_ptr(), bsz, n, beta32)
     return out
+
+
+def greedy_clique_plain(
+    rows: torch.Tensor, order: torch.Tensor, allowed: torch.Tensor, num_seeds: int
+) -> tuple:
+    """Plain PyTorch version of the ``greedy_clique`` kernel.
+
+    ``rows`` (B, N, W) int32 adjacency rows (bit ``j`` of word ``[b, v, w]``:
+    vertex ``32 w + j`` is adjacent to ``v``; zero diagonal), ``order``
+    (B, N) int32 each problem's core order (a permutation of the vertices),
+    ``allowed`` (B, W) int32 packed vertices that may be candidates ->
+    ``members`` (B, S, W) int32 packed cliques and ``sizes`` (B, S) int32.
+    Lane ``s`` of problem ``b`` is seeded with ``order[b, s]``; its
+    candidates are the seed's row masked by ``allowed``, or none if the
+    seed is not allowed. A step takes the first candidate in ``order`` at
+    or past the lane's cursor, moves the cursor past it, and ANDs its row
+    into the candidates; a lane with no candidate past its cursor is done.
+    All lanes step together, one host sync a step.
+    """
+    bsz, n, _ = rows.shape
+    dev = rows.device
+    problem = torch.arange(bsz, device=dev)[:, None]  # (B, 1)
+    order = order.long()
+    seeds = order[:, :num_seeds]  # (B, S)
+    cand = rows[problem, seeds] & allowed[:, None, :]
+    open_ = (torch.gather(allowed, -1, seeds >> 5) >> (seeds & 31).to(torch.int32)) & 1 != 0
+    cand = cand.masked_fill(~open_[..., None], 0)
+    members = torch.zeros_like(cand)
+    one = torch.ones_like(seeds, dtype=torch.int32)
+    members.scatter_(-1, seeds[..., None] >> 5, (one << (seeds & 31).to(torch.int32))[..., None])
+    sizes = one.clone()
+    cursor = torch.zeros_like(seeds)
+    position = torch.arange(n, device=dev)
+    # each order entry's word and bit, as the lanes see them: (B, S, N), (B, 1, N)
+    order_word = (order >> 5)[:, None, :].expand(-1, seeds.shape[1], -1)
+    order_shift = (order & 31).to(torch.int32)[:, None, :]
+    while True:
+        hit = (torch.gather(cand, -1, order_word) >> order_shift) & 1 != 0
+        hit &= position >= cursor[..., None]
+        running = hit.any(dim=-1)
+        if not bool(running.any()):  # the step's one host sync
+            return members, sizes
+        first = torch.argmax(hit.to(torch.int8), dim=-1)  # the first hit
+        pick = torch.gather(order, 1, first)
+        cursor = torch.where(running, first + 1, cursor)
+        bit = torch.where(running, one << (pick & 31).to(torch.int32), 0)
+        word = (pick >> 5)[..., None]
+        members.scatter_(-1, word, torch.gather(members, -1, word) | bit[..., None])
+        sizes += running.to(torch.int32)
+        cand = torch.where(running[..., None], cand & rows[problem, pick], cand)
+
+
+def greedy_clique(
+    rows: torch.Tensor, order: torch.Tensor, allowed: torch.Tensor, num_seeds: int
+) -> tuple:
+    """The batched greedy clique: the ``greedy_clique`` kernel's wrapper.
+
+    Arguments and results as :func:`greedy_clique_plain`'s, all contiguous
+    int32 on one device, ``1 <= num_seeds <= N``. On the CPU this is
+    :func:`greedy_clique_plain`; on CUDA the kernel launches on the current
+    stream without synchronising, one warp a lane, and writes every word of
+    its uninitialised outputs. Rows too long for a block's shared memory
+    (N above ~929,000) raise.
+    """
+    if rows.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"greedy_clique runs on cuda or cpu, not {rows.device}")
+    if rows.dim() != 3:
+        raise ValueError(f"rows must be (B, N, W), got {tuple(rows.shape)}")
+    bsz, n, words = rows.shape
+    _check("rows", rows, torch.int32, (bsz, n, (n + 31) // 32), rows.device)
+    _check("order", order, torch.int32, (bsz, n), rows.device)
+    _check("allowed", allowed, torch.int32, (bsz, words), rows.device)
+    if not 1 <= num_seeds <= n:
+        raise ValueError(f"num_seeds {num_seeds} outside [1, {n}]")
+    if rows.device.type == "cpu":
+        return greedy_clique_plain(rows, order, allowed, num_seeds)
+    members = torch.empty((bsz, num_seeds, words), dtype=torch.int32, device=rows.device)
+    sizes = torch.empty((bsz, num_seeds), dtype=torch.int32, device=rows.device)
+    if bsz == 0:
+        return members, sizes
+    _launch("greedy_clique", "greedy_clique", rows.device, rows.data_ptr(),
+            order.data_ptr(), allowed.data_ptr(), members.data_ptr(), sizes.data_ptr(),
+            bsz, n, num_seeds)
+    return members, sizes

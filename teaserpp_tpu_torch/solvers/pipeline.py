@@ -26,12 +26,8 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from teaserpp_tpu_torch.clique.graph import adjacency_from_pair_mask
-from teaserpp_tpu_torch.clique.heuristic import heuristic_max_clique
-from teaserpp_tpu_torch.clique.kcore import (
-    core_numbers_from_bits,
-    pack_bits_u32_rows,
-    unpack_bits_u32_rows,
-)
+from teaserpp_tpu_torch.clique.heuristic import heuristic_max_clique_from_bits
+from teaserpp_tpu_torch.clique.kcore import core_numbers_from_bits, pack_bits_u32_rows
 from teaserpp_tpu_torch.device import DeviceLike, resolve_device
 from teaserpp_tpu_torch.ops.procrustes import rotate, svd_rot
 from teaserpp_tpu_torch.ops.tims import (
@@ -147,7 +143,6 @@ def _select_inliers(
     n: int,
     params: RobustRegistrationSolverParams,
     valid: Optional[torch.Tensor],
-    adj: Optional[torch.Tensor],
     clock: "_StageClock",
     peel_stage: str,
 ) -> torch.Tensor:
@@ -160,9 +155,9 @@ def _select_inliers(
     threshold * n_valid`` (reference graph.cc:66-81) and runs the greedy
     clique elsewhere, its lanes empty where the shortcut holds; PMC_HEU and
     PMC_EXACT run the greedy clique, as JAX's ``else`` branch does. The
-    greedy's (B, N, N) bool adjacency is ``adj`` or, when None, the words
-    unpacked on the device; it runs only when some problem needs it, and
-    the clock marks ``greedy`` after it, ``peel_stage`` after the peel.
+    greedy reads the words themselves (one ``greedy_clique`` launch for the
+    batch, no host sync); it runs only when some problem needs it, and the
+    clock marks ``greedy`` after it, ``peel_stage`` after the peel.
     """
     mode = params.resolved_inlier_selection_mode()
     threshold = params.kcore_heuristic_threshold
@@ -183,14 +178,9 @@ def _select_inliers(
             run_greedy = not bool(use_kcore.all())  # one host sync
     clock.mark(peel_stage)
     if run_greedy:
-        greedy_valid = valid
-        if adj is None:
-            # the words hold `valid` already: no masked copy of the unpacked
-            # adjacency (the seeds and the final AND see `valid` all the same)
-            adj, greedy_valid = unpack_bits_u32_rows(adj_bits, n), None
-        heu = heuristic_max_clique(
-            adj, valid=greedy_valid, num_seeds=params.max_clique_heuristic_seeds,
-            skip=use_kcore, core=core,
+        heu = heuristic_max_clique_from_bits(
+            adj_bits, n, core, valid=valid, num_seeds=params.max_clique_heuristic_seeds,
+            skip=use_kcore,
         )
         mask = heu.mask if use_kcore is None else torch.where(use_kcore[:, None], mask,
                                                               heu.mask)
@@ -209,8 +199,8 @@ def device_clique_from_bits(
     """Inlier selection on each problem's row-packed (B, W, N) adjacency
     words -> (B, N) bool mask: the top k-core or the greedy clique, as
     :func:`device_clique_from_adjacency` says."""
-    return _select_inliers(adj_bits, n, params, valid, None,
-                           _StageClock(None, adj_bits.device), "peel")
+    return _select_inliers(adj_bits, n, params, valid, _StageClock(None, adj_bits.device),
+                           "peel")
 
 
 def device_clique_from_adjacency(
@@ -226,7 +216,7 @@ def device_clique_from_adjacency(
     PMC_EXACT the greedy clique over ``max_clique_heuristic_seeds`` seeds
     (not an exact search, in either package). ``valid`` is ANDed in last.
     """
-    return _select_inliers(pack_bits_u32_rows(adj), adj.shape[-1], params, valid, adj,
+    return _select_inliers(pack_bits_u32_rows(adj), adj.shape[-1], params, valid,
                            _StageClock(None, adj.device), "clique")
 
 
@@ -239,7 +229,7 @@ def _clique_from_pairs(pair_mask, n, params, valid, clock) -> torch.Tensor:
     adj = adjacency_from_pair_mask(pair_mask, n)
     if valid is not None:
         adj = adj & valid[:, None, :] & valid[:, :, None]
-    return _select_inliers(pack_bits_u32_rows(adj), n, params, valid, adj, clock, "clique")
+    return _select_inliers(pack_bits_u32_rows(adj), n, params, valid, clock, "clique")
 
 
 def device_clique_stage(
@@ -426,7 +416,7 @@ def register_pair(
     if not params.estimate_scaling and mode != InlierSelectionMode.NONE:
         bits = trim_adjacency_bits(src, dst, params.noise_bound, params.cbar2, valid)
         clock.mark("bits")
-        clique_mask = _select_inliers(bits, n, params, valid, None, clock, "peel")
+        clique_mask = _select_inliers(bits, n, params, valid, clock, "peel")
         del bits
         scale = torch.ones((bsz,), dtype=src.dtype, device=dev)
         return rotation_translation_stage(src, dst, scale, clique_mask, params, stage_ms)

@@ -162,3 +162,102 @@ def test_clique_stage_functions_match_jax(batch, mode, threshold):
     i, j = np.triu_indices(N_PAD, k=1)
     from_pairs = tpipe.device_clique_stage(t_adj[:, i, j], N_PAD, params, t_valid)
     assert torch.equal(from_bits, got) and torch.equal(from_pairs, got)
+
+
+def _tie_batch():
+    """Six problems padded to 67 vertices on which ties in core number are
+    the rule: five disjoint 7-cliques, a circulant 6-regular graph, a
+    5-cycle of 4-cliques joined in a ring, a cycle, a problem with fewer
+    valid vertices (10) than seeds, and a planted clique among equal-degree
+    noise; the padding is scattered in two of them."""
+    n = 67
+    rng = np.random.default_rng(5)
+    adj = np.zeros((6, n, n), bool)
+    valid = np.ones((6, n), bool)
+    for c in range(5):  # disjoint equal cliques; vertices 35.. isolated
+        adj[0, 7 * c:7 * c + 7, 7 * c:7 * c + 7] = True
+    i = np.arange(n)
+    for k in (1, 2, 3):  # circulant: i ~ i +- 1, 2, 3
+        adj[1, i, (i + k) % n] = adj[1, (i + k) % n, i] = True
+    for c in range(5):  # 4-cliques on a ring, each joined to the next by one edge
+        adj[2, 4 * c:4 * c + 4, 4 * c:4 * c + 4] = True
+        a, b = 4 * c + 3, (4 * c + 4) % 20
+        adj[2, a, b] = adj[2, b, a] = True
+    adj[3, i[:61], (i[:61] + 1) % 61] = adj[3, (i[:61] + 1) % 61, i[:61]] = True
+    adj[4] = _graph(rng, n, 0.3, 8)
+    valid[4] = False
+    valid[4, rng.choice(n, 10, replace=False)] = True  # 10 valid, fewer than the seeds
+    adj[5] = _graph(rng, n, 0.15, 11)
+    valid[5, rng.choice(n, 9, replace=False)] = False
+    valid[1, [0, 33, 66]] = False
+    idx = np.arange(n)
+    adj[:, idx, idx] = False
+    return adj, valid
+
+
+@pytest.mark.parametrize("num_seeds", [16, 64])
+@pytest.mark.parametrize("skip", [None, [False, True, False, True, False, False]],
+                         ids=["run_all", "skip_mixed"])
+def test_greedy_on_ties_padding_and_skip_matches_jax_vmap(num_seeds, skip):
+    """Ties in core number decide nearly every pick, N = 67 is no multiple of
+    32, one problem has fewer valid vertices than seeds, and skipped lanes
+    run beside running ones: every mask, size and core number equals
+    ``jax.vmap`` of the JAX greedy's."""
+    adj, valid = _tie_batch()
+    skip = None if skip is None else np.array(skip)
+    ref = _jax_batched(adj, valid, num_seeds, skip)
+    got = theu.heuristic_max_clique(
+        torch.from_numpy(adj), valid=torch.from_numpy(valid), num_seeds=num_seeds,
+        skip=None if skip is None else torch.from_numpy(skip))
+    for f in ("mask", "size", "max_core", "core"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f)), f)
+    sizes = got.size.tolist()
+    if skip is None:
+        assert sizes[0] == 7 and sizes[2] == 4 and sizes[3] == 2
+    else:
+        assert sizes[1] == sizes[3] == 1 and sizes[0] == 7
+    assert not (got.mask.numpy() & ~valid).any()
+
+
+def test_greedy_words_route_equals_dense_route():
+    """K1's (B, W, N) words and the dense adjacency give the same cliques:
+    the words' transpose is the dense rows' packing."""
+    adj, valid = _tie_batch()
+    t_adj, t_valid = torch.from_numpy(adj), torch.from_numpy(valid)
+    dense = theu.heuristic_max_clique(t_adj, valid=t_valid, num_seeds=16)
+    words = tkcore.pack_bits_u32_rows(t_adj)
+    assert torch.equal(words.transpose(-1, -2), tkcore.pack_bits_u32(t_adj))
+    got = theu.heuristic_max_clique_from_bits(words, adj.shape[-1], dense.core,
+                                              valid=t_valid, num_seeds=16)
+    for f in ("mask", "size", "max_core", "core"):
+        assert torch.equal(getattr(got, f), getattr(dense, f)), f
+
+
+@pytest.mark.parametrize("case", ["dtype", "rows_shape", "order_shape", "allowed_shape",
+                                  "seeds_zero", "seeds_past_n", "device"])
+def test_greedy_clique_wrapper_refuses_and_counts_nothing(case):
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+
+    n, bsz = 40, 2
+    rows = torch.zeros((bsz, n, 2), dtype=torch.int32)
+    order = torch.arange(n, dtype=torch.int32).repeat(bsz, 1)
+    allowed = torch.full((bsz, 2), -1, dtype=torch.int32)
+    seeds = 4
+    if case == "dtype":
+        rows = rows.long()
+    elif case == "rows_shape":
+        rows = torch.zeros((bsz, n, 3), dtype=torch.int32)
+    elif case == "order_shape":
+        order = order[:, :-1].contiguous()
+    elif case == "allowed_shape":
+        allowed = allowed[:1]
+    elif case == "seeds_zero":
+        seeds = 0
+    elif case == "seeds_past_n":
+        seeds = n + 1
+    else:
+        rows = rows.to("meta")
+    ck.reset_launches()
+    with pytest.raises((TypeError, ValueError)):
+        ck.greedy_clique(rows, order, allowed, seeds)
+    assert ck.LAUNCHES["greedy_clique"] == 0

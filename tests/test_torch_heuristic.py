@@ -11,6 +11,7 @@ from teaserpp_tpu.clique import heuristic as jheu
 from teaserpp_tpu.clique import kcore as jkcore
 from teaserpp_tpu_torch.clique import heuristic as theu
 from teaserpp_tpu_torch.clique import kcore as tkcore
+from teaserpp_tpu_torch.ops import cuda_kernels as tck
 
 
 def _graph(rng, n, density, planted):
@@ -129,11 +130,15 @@ def test_seeds_that_finish_at_different_steps_keep_their_state():
     adj[1:10, 1:10] = True
     adj[11:14, 11:14] = True
     np.fill_diagonal(adj, False)
-    seeds = torch.tensor([11, 12, 1, 2, 0])
-    core = torch.from_numpy(np.array(jkcore.core_numbers(jnp.asarray(adj))))
-    members = theu._greedy_from_seed(
-        seeds[None], torch.from_numpy(adj)[None], core[None],
-        torch.zeros((1,), dtype=torch.bool))[0].numpy()
+    seeds = [11, 12, 1, 2, 0]
+    core = np.array(jkcore.core_numbers(jnp.asarray(adj)))
+    rest = [v for v in np.argsort(-core, kind="stable") if v not in seeds]
+    order = torch.tensor([seeds + rest], dtype=torch.int32)  # the seeds lead
+    rows = tkcore.pack_bits_u32(torch.from_numpy(adj))[None]
+    allowed = tkcore.pack_bits_u32(torch.ones((1, n), dtype=torch.bool))
+    words, sizes = tck.greedy_clique_plain(rows, order, allowed, len(seeds))
+    members = tkcore.unpack_bits_u32_rows(words[0][..., None], n)[..., 0].numpy()
+    assert sizes[0].tolist() == members.sum(axis=1).tolist()
     assert members[:, 0].tolist() == [False, False, False, False, True]
     assert members.sum(axis=1).tolist() == [3, 3, 9, 9, 1]
     ref, got = _both(adj, num_seeds=n)  # every vertex a seed, isolated ones too

@@ -105,13 +105,19 @@ def test_wrappers_on_cpu_are_plain_and_uncounted(rng):
     src, dst = _clouds(rng, 96, 40, batch=2)
     s, d = _t(src), _t(dst)
     before = dict(ck.LAUNCHES)
-    assert set(before) == {"trim_bits", "trim_bits_slab", "trim_degrees", "trim_adjacency_i8"}
+    assert set(before) == {"trim_bits", "trim_bits_slab", "trim_degrees", "trim_adjacency_i8",
+                           "greedy_clique"}
     assert torch.equal(ck.trim_degrees(s, d, BETA), ck.trim_degrees_plain(s, d, BETA))
     assert torch.equal(ck.trim_adjacency_i8(s, d, BETA),
                        ck.trim_adjacency_i8_plain(s, d, BETA))
     valid = torch.ones((2, 96), dtype=torch.bool)
     assert torch.equal(ck.trim_bits(s, d, valid, BETA, rows=(1, 3)),
                        ck.trim_adjacency_bits_plain(s, d, valid, BETA, rows=(1, 3)))
+    rows = ck.trim_adjacency_bits_plain(s, d, valid, BETA).transpose(-1, -2).contiguous()
+    order = torch.arange(96, dtype=torch.int32).repeat(2, 1)
+    allowed = torch.full((2, 3), -1, dtype=torch.int32)
+    got, want = (f(rows, order, allowed, 8) for f in (ck.greedy_clique, ck.greedy_clique_plain))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert ck.LAUNCHES == before
 
 
