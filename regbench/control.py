@@ -2,8 +2,9 @@
 and computed one precision below the configuration's float32, in bfloat16
 (graph, rotation and translation; 3x3 decompositions, which PyTorch has in
 no type below float32, in float32), held against the reference as a run's
-answers are. It has to come out not correct; its readings are the upper
-ends from which the limits in ``workloads/<cell>.json`` were set.
+answers are, by the same numbers. The reference is the one the cell's
+configuration names. It has to come out not correct; its readings are the
+upper ends from which the limits in ``workloads/<cell>.json`` were set.
 
     python3 -m regbench.control --workload <cell> --seeds 1 2 3 [--device cuda]
 
@@ -27,10 +28,10 @@ def control_readings(workload: str, seed: int, device, override: Optional[dict] 
     import torch
 
     from regbench import checks
-    from regbench.reference import registration as ref
     from regbench.run import load_cell, load_module
 
     cell, config, traffic = load_cell(workload, override)
+    ref = load_module("reference", config["reference"])
     src, dst = load_module("generators", config["generator"]).make(
         config["problem"], seed, range(traffic["pool"]))
     src_t = torch.from_numpy(src).to(device)
@@ -41,10 +42,9 @@ def control_readings(workload: str, seed: int, device, override: Optional[dict] 
     got = ref.solve(src_t, dst_t, config["solver"], dtype=torch.bfloat16,
                     graph_dtype=torch.bfloat16)
     t2 = time.perf_counter()
-    v = checks.compare(got.rotation.cpu().numpy(), got.translation.cpu().numpy(),
-                       got.inliers.cpu().numpy(), want.rotation.cpu().numpy(),
-                       want.translation.cpu().numpy(), want.inliers.cpu().numpy(),
-                       want.decided.cpu().numpy(), cell["limits"])
+    v = checks.compare(*(x.cpu().numpy() for x in (
+        got.rotation, got.translation, got.scale, got.inliers, want.rotation,
+        want.translation, want.scale, want.inliers, want.decided)), cell["limits"])
     return {"workload": workload, "seed": seed, "problems": int(len(src)),
             "correct": v.correct, "failed": v.failed, "checks": v.as_json(),
             "reference_s": t1 - t0, "control_s": t2 - t1}

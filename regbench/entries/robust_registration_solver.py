@@ -25,7 +25,8 @@ class _Entry:
         if stage_ms is not None:
             for name, s in self.solver.getStageTimings().items():
                 stage_ms[name] = stage_ms.get(name, 0.0) + s * 1e3
-        return (np.asarray(sol.rotation)[None], np.asarray(sol.translation)[None], mask)
+        return (np.asarray(sol.rotation)[None], np.asarray(sol.translation)[None],
+                np.array([sol.scale]), mask)
 
 
 def open(solver: dict, args: dict, device):

@@ -19,7 +19,7 @@ class _Entry:
     def solve(self, src, dst, stage_ms=None):
         sol = self._solve(src, dst, self.params, device=self.device, stage_ms=stage_ms)
         return (sol.rotation.cpu().numpy(), sol.translation.cpu().numpy(),
-                sol.clique_mask.cpu().numpy())
+                sol.scale.cpu().numpy(), sol.clique_mask.cpu().numpy())
 
 
 def open(solver: dict, args: dict, device):

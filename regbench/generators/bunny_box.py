@@ -2,7 +2,8 @@
 
 The upstream TEASER++ example ``examples/teaser_cpp_ply/teaser_cpp_ply.cc``
 with its cloud drawn uniformly in a box (the bunny PLY is not shipped):
-``dst = R src + t`` under the example's fixed transform, uniform noise
+``dst = s R src + t`` under the example's fixed transform and the
+problem's ``scale`` s (the key left out: known scale, s = 1), uniform noise
 ``+-noise_bound / 2`` on every coordinate, and ``outlier_draws`` draws with
 replacement, each shifting all three axes of the drawn point by one integer
 in ``outlier_shift`` (inclusive). Every problem draws its own cloud.
@@ -37,7 +38,10 @@ def make(problem: dict, seed: int, ids) -> tuple:
     for k, i in enumerate(ids):
         rng = np.random.default_rng(np.random.SeedSequence([seed, int(i)]))
         cloud = rng.uniform(0.0, problem["cloud_box_m"], (3, n))
-        tgt = t[:3, :3] @ cloud + t[:3, 3:4]
+        tgt = t[:3, :3] @ cloud
+        if "scale" in problem:
+            tgt *= problem["scale"]
+        tgt += t[:3, 3:4]
         tgt += rng.uniform(-nb / 2, nb / 2, size=tgt.shape)
         mask = np.zeros(n, bool)
         mask[rng.integers(0, n, size=min(problem["outlier_draws"], n))] = True

@@ -1,5 +1,10 @@
 """Plain reference of a known-scale TEASER++ registration, in PyTorch.
 
+The configuration fixes the scale at 1: the reference builds the s = 1
+TRIM graph and returns a scale of 1 for every problem, whatever the
+solver's ``estimate_scaling`` says, so a configuration that estimates the
+scale needs a reference of its own.
+
 Given the same correspondences as the program, it works out again what the
 program derives from them, with nothing of the program: the TRIM graph of
 the TIM pairs, the maximum clique of that graph, the chain TIMs over the
@@ -36,6 +41,7 @@ import torch
 class Reference(NamedTuple):
     rotation: torch.Tensor  # (P, 3, 3) float64
     translation: torch.Tensor  # (P, 3) float64
+    scale: torch.Tensor  # (P,) float64: 1, the configuration's known scale
     inliers: torch.Tensor  # (P, n) bool: the selected clique
     decided: torch.Tensor  # (P,) bool: the top core is a clique
 
@@ -276,5 +282,6 @@ def solve(src: torch.Tensor, dst: torch.Tensor, solver: dict,
             solver["rotation_cost_threshold"])
         aligned = torch.einsum("pij,pjn->pin", rot, sx)
         t = tls_translation(dx - aligned, inl, nb * math.sqrt(cbar2))
-        out.append(Reference(rot.to(torch.float64), t.to(torch.float64), inl, decided))
+        ones = torch.ones(s.shape[0], dtype=torch.float64, device=s.device)
+        out.append(Reference(rot.to(torch.float64), t.to(torch.float64), ones, inl, decided))
     return Reference(*(torch.cat(f) for f in zip(*out)))

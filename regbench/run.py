@@ -9,8 +9,9 @@ configuration and traffic mix, and the traffic mix its driver
 loads its native libraries into its ``_build/`` directory in the checkout,
 and has the driver warm the entry up at the window's shapes; then the
 driver sends requests for ``--seconds``. After the window every answer is
-held against the plain reference (``checks.py``), which runs on the same
-card once the program's memory is read and freed.
+held against the plain reference that the configuration names
+(``reference/<name>.py``, compared by ``checks.py``), which runs on the
+same card once the program's memory is read and freed.
 
 With ``--trace 0`` the line carries the cell's end-to-end metrics. With
 ``--trace 1`` the driver profiles the first requests of the window with
@@ -167,9 +168,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
 
     from regbench import checks
     from regbench import trace as tr
-    from regbench.reference import registration as ref
 
     cell, config, traffic = load_cell(workload, override)
+    ref = load_module("reference", config["reference"])
     seed = int(seed) % 2 ** 64
     bsz, pool = traffic["batch"], traffic["pool"]
     if pool % bsz:
@@ -219,19 +220,17 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
             raise RuntimeError("the profiler recorded no device time in the traced window")
 
     # correctness: every answer of the window against the reference of its problem
-    rows = [(first + k, a_i, k) for a_i, (first, rot, _, _) in enumerate(answers)
+    rows = [(first + k, a_i, k) for a_i, (first, rot, *_) in enumerate(answers)
             for k in range(len(rot))]
     pids = sorted({p for p, _, _ in rows})
     at = {p: i for i, p in enumerate(pids)}
     sol = ref.solve(torch.from_numpy(src_pool[pids]).to(device),
                     torch.from_numpy(dst_pool[pids]).to(device), config["solver"])
     idx = np.array([at[p] for p, _, _ in rows])
-    verdict = checks.compare(
-        np.stack([answers[a][1][k] for _, a, k in rows]),
-        np.stack([answers[a][2][k] for _, a, k in rows]),
-        np.stack([answers[a][3][k] for _, a, k in rows]),
-        sol.rotation.cpu().numpy()[idx], sol.translation.cpu().numpy()[idx],
-        sol.inliers.cpu().numpy()[idx], sol.decided.cpu().numpy()[idx], cell["limits"])
+    got = [np.stack([answers[a][f][k] for _, a, k in rows]) for f in range(1, 5)]
+    want = [x.cpu().numpy()[idx] for x in (sol.rotation, sol.translation, sol.scale,
+                                           sol.inliers, sol.decided)]
+    verdict = checks.compare(*got, *want, cell["limits"])
 
     dev = {"platform": "gpu" if is_cuda else device.type, "kind": kind, "count": cell["chips"],
            "memory_peak_bytes": memory_peak}

@@ -29,7 +29,8 @@ def test_result_line_on_the_cpu(cell, trace):
     assert list(res) == ["correct", "attempted", "failed", "metrics"] + (
         ["breakdown"] if trace else []) + ["device", "checks"]
     assert res["correct"] is True and res["failed"] == 0 and res["attempted"] >= 1
-    assert list(res["checks"]) == ["set_diff", "rot_gap_deg", "trans_gap_m", "undecided"]
+    assert list(res["checks"]) == ["set_diff", "rot_gap_deg", "trans_gap_m", "scale_gap",
+                                   "undecided"]
     for v in res["checks"].values():
         assert set(v) == {"value", "limit"} and v["value"] <= v["limit"]
     bench = json.loads((run.ROOT / "BENCHMARK.json").read_text())

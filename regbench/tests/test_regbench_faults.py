@@ -6,9 +6,10 @@ The faults a cell can have: a step that returns its state unchanged (the
 GNC rotation loop hands back its starting identity); half of the batch
 left out (the batch's second half answered with the first half's
 solutions; a single problem solved on half of its correspondences); an
-answer altered where it is produced (one inlier flipped, or a translation
-moved by a millimetre). One card, so no exchange between cards to leave
-out.
+answer altered where it is produced (one inlier flipped, a translation
+moved by a millimetre, or a scale by a thousandth). One card, so no
+exchange between cards to leave out. And a reference that does not model
+the configuration's scale fails the comparison.
 """
 
 import time
@@ -71,6 +72,8 @@ def _altered(what):
                 sol = solve(self, src, dst)
                 if what == "inlier":
                     self._max_clique = self._max_clique[1:]
+                elif what == "scale":
+                    sol.scale = sol.scale * 1.001
                 else:
                     sol.translation = sol.translation + 1e-3
                 return sol
@@ -85,6 +88,8 @@ def _altered(what):
                 mask = sol.clique_mask.clone()
                 mask.view(-1)[int(torch.nonzero(mask.view(-1))[0])] = False
                 return sol._replace(clique_mask=mask)
+            if what == "scale":
+                return sol._replace(scale=sol.scale * 1.001)
             return sol._replace(translation=sol.translation + 1e-3)
 
         monkeypatch.setattr(teaserpp_tpu_torch, "solve_batch", alter)
@@ -92,7 +97,8 @@ def _altered(what):
 
 
 FAULTS = {"state_unchanged": _state_unchanged, "half_left_out": _half_left_out,
-          "inlier_altered": _altered("inlier"), "translation_altered": _altered("translation")}
+          "inlier_altered": _altered("inlier"), "translation_altered": _altered("translation"),
+          "scale_altered": _altered("scale")}
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
@@ -103,6 +109,24 @@ def test_a_broken_program_is_not_correct(cell, fault, monkeypatch):
     FAULTS[fault](monkeypatch, cell)
     res, verdict = _run(cell)
     assert res["correct"] is False and res["failed"] >= 1, verdict.lines()
+    if fault == "scale_altered":  # only the scale moved, and its own number sees it
+        assert verdict.worst["scale_gap"] > verdict.limits["scale_gap"], verdict.lines()
+        assert res["failed"] == verdict.compared, verdict.lines()
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_reference_that_ignores_the_scale_is_not_correct(cell):
+    # the program estimates s = 1.4; the known-scale reference answers 1
+    small = SMALL[cell]
+    override = {"config": dict(small["config"],
+                               problem=dict(small["config"]["problem"], scale=1.4),
+                               solver={"estimate_scaling": True}),
+                "traffic": small["traffic"]}
+    assert run.load_cell(cell, override)[1]["reference"] == "registration"
+    res, verdict = run.run_cell(cell, 4242, 0.3, False, torch.device("cpu"), override,
+                                t0=time.perf_counter())
+    assert res["correct"] is False and res["failed"] >= 1, verdict.lines()
+    assert verdict.worst["scale_gap"] > verdict.limits["scale_gap"], verdict.lines()
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -1,6 +1,8 @@
 """The generators draw the same inputs from the same seed, problem by
 problem, and other inputs from another seed."""
 
+import hashlib
+
 import numpy as np
 import pytest
 
@@ -43,3 +45,33 @@ def test_bunny_problems_follow_the_example():
     shift = np.round(resid[0][:, ~inlier[0]])  # one integer on all three axes
     assert np.all(shift[0] == shift[1]) and np.all(shift[0] == shift[2])
     assert np.all((shift >= 5) & (shift <= 20))  # a point drawn twice moves twice
+
+
+# sha256 of src then dst of bunny1889's problems 0-3, drawn before the
+# generator took a scale: a problem without the key draws the same bytes
+BUNNY_POOL_SHA256 = {
+    SEED: "c02b1c4a59c52cbf2de895cd94b6b224df0fe8431f772259cde0713ca944ff17",
+    7: "7c9a1d733756f3200f575fc90b5425c2bfa30b6a3c978cf019b01fc1d06f8dfb",
+}
+
+
+@pytest.mark.parametrize("seed", sorted(BUNNY_POOL_SHA256))
+def test_bunny_pool_without_a_scale_is_unchanged(seed):
+    cfg = load_json("configs", "bunny1889")
+    assert "scale" not in cfg["problem"]
+    src, dst = load_module("generators", "bunny_box").make(cfg["problem"], seed, range(4))
+    assert hashlib.sha256(src.tobytes() + dst.tobytes()).hexdigest() == BUNNY_POOL_SHA256[seed]
+
+
+def test_bunny_scale_multiplies_the_rotated_cloud():
+    cfg = load_json("configs", "bunny1889")
+    gen = load_module("generators", "bunny_box")
+    clean = dict(cfg["problem"], noise_bound=0.0, outlier_draws=0)
+    src1, dst1 = gen.make(clean, SEED, range(3))
+    src, dst = gen.make(dict(clean, scale=1.5), SEED, range(3))
+    np.testing.assert_array_equal(src, src1)
+    t = gen.transform(clean)[:3, 3:4]
+    np.testing.assert_allclose(dst - t, 1.5 * (dst1 - t), rtol=0, atol=1e-6)
+    t4 = gen.transform(clean)
+    np.testing.assert_allclose(dst, 1.5 * (t4[:3, :3] @ src.astype(np.float64)) + t,
+                               rtol=0, atol=1e-6)

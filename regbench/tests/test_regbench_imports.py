@@ -19,8 +19,8 @@ cell, config, traffic = run.load_cell(sys.argv[1])
 run.load_module("generators", config["generator"])
 run.load_module("entries", traffic["entry"])
 run.load_module("traffic", traffic["driver"])
+run.load_module("reference", config["reference"])
 import regbench.checks, regbench.trace, regbench.yardstick, regbench.control
-import regbench.reference.registration
 import teaserpp_tpu_torch
 bench = json.loads((run.ROOT / "BENCHMARK.json").read_text())
 for kind, folder in (("end_to_end", "end_to_end"), ("per_layer", "metrics")):
@@ -58,6 +58,13 @@ def test_no_file_imports_jax(path):
 def test_reference_imports_nothing_of_the_program(path):
     for mod in _imports(path):
         assert mod.split(".")[0] in ("__future__", "math", "typing", "torch", "numpy"), mod
+
+
+@pytest.mark.parametrize("name", ["run.py", "control.py"])
+def test_the_reference_is_loaded_by_the_configuration_s_name(name):
+    text = (HERE / name).read_text()
+    assert 'load_module("reference", config["reference"])' in text
+    assert "regbench.reference" not in text and "import reference" not in text
 
 
 def test_harness_reads_no_jax_era_script():

@@ -2,6 +2,7 @@
 configuration, traffic mix, driver, entry, generator and metric it names
 is a file of its own that the harness finds by name."""
 
+import inspect
 import json
 import re
 
@@ -49,7 +50,8 @@ def test_cell_file_matches_the_manifest(cell):
     load_module("entries", traffic["entry"])
     driver = load_module("traffic", traffic["driver"])
     assert callable(driver.warm_up) and callable(driver.drive)
-    assert set(doc["limits"]) == {"set_diff", "rot_gap_deg", "trans_gap_m", "undecided"}
+    assert set(doc["limits"]) == {"set_diff", "rot_gap_deg", "trans_gap_m", "scale_gap",
+                                  "undecided"}
     assert doc["limits"]["set_diff"] == 0 and doc["limits"]["undecided"] == 0
     pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
     assert len(pairs) == len(set(pairs))
@@ -66,6 +68,15 @@ def test_config_file_matches_the_manifest(config):
     assert isinstance(doc["assumed"], list) and doc["precision"] == "float32"
     load_module("generators", doc["generator"])
     assert any(config == w["config"] for w in BENCH["workloads"])
+
+
+@pytest.mark.parametrize("config", CONFIGS)
+def test_config_names_its_reference(config):
+    doc = load_json("configs", config)
+    assert NAME.match(doc["reference"]) and (HERE / "reference" / f"{doc['reference']}.py").exists()
+    params = inspect.signature(load_module("reference", doc["reference"]).solve).parameters
+    assert list(params)[:3] == ["src", "dst", "solver"]
+    assert {"dtype", "graph_dtype"} <= set(params)
 
 
 @pytest.mark.parametrize("metric", METRICS, ids=lambda m: m["name"])

@@ -130,6 +130,7 @@ def test_solve_recovers_the_ground_truth():
     cfg, t, src, dst = _problem()
     sol = ref.solve(src, dst, cfg["solver"])
     assert bool(sol.decided.all())
+    assert sol.scale.dtype == torch.float64 and bool((sol.scale == 1.0).all())
     resid = dst.double() - (torch.from_numpy(t[:3, :3]) @ src.double() + torch.from_numpy(t[:3, 3:4]))
     truth = resid.abs().amax(dim=1) <= cfg["problem"]["noise_bound"] / 2 + 1e-6
     np.testing.assert_array_equal(sol.inliers.numpy(), truth.numpy())

@@ -39,9 +39,9 @@ def drive(ctx, seconds: float, trace: bool) -> dict:
         src, dst, first = ctx.request(r)
         a = time.perf_counter()
         with torch.profiler.record_function(tr.REQUEST):
-            rot, trans, mask = ctx.entry.solve(src, dst, stages)
+            rot, trans, scale, mask = ctx.entry.solve(src, dst, stages)
         out["latencies_s"].append(time.perf_counter() - a)
-        out["answers"].append((first, rot, trans, mask))
+        out["answers"].append((first, rot, trans, scale, mask))
         if stages is not None:
             out["stage_ms"].append(stages)
         r += 1
