@@ -103,14 +103,18 @@ def scalar_tls(
         a time, so only its scan outlives the call."""
         return prefix_sum(torch.gather(torch.cat([q, -q], dim=-1), -1, perm))
 
-    # invalid measurements add nothing (q is 0 there)
+    # invalid measurements add nothing (q is 0 there). The ranges' total is
+    # the last of their fixed-order prefix sums, not ``torch.sum``, whose
+    # order on the card follows the number of rows: so a problem's bits do
+    # not depend on the batch it is solved in.
+    total_rng = prefix_sum(ranges * vmask)[..., -1:]
     card = running(vmask)
     cum_w = running(w)
     cum_xw = running(w * x)
     cum_rng = -running(ranges * vmask)  # outlier penalty: closing adds the range back
     cum_sx = running(x * vmask)
     cum_sx2 = running(x * x * vmask)
-    outlier_pen = torch.sum(ranges * vmask, dim=-1, keepdim=True) + cum_rng
+    outlier_pen = total_rng + cum_rng
 
     have_consensus = card > 0.5
     safe_w = torch.where(have_consensus, cum_w, torch.ones_like(cum_w))

@@ -7,6 +7,9 @@ one of two branches, as there:
   adjacency bits (CUDA kernel) -> batch k-core peel -> inlier selection;
 * otherwise (unknown scale, or NONE): TIM norms -> TLS scale or the TRIM
   pair selector -> pair-mask adjacency -> inlier selection (or every point).
+  The first three steps run a chunk of problems at a time
+  (:data:`SCALE_CHUNK_EVENTS`), so their memory does not grow with the
+  batch; the selection runs once over the whole batch's words.
 
 Both then run chain TIMs -> GNC-TLS / FGR / Quatro rotation -> TLS
 translation. Every function takes a batch dimension where the JAX package
@@ -50,6 +53,26 @@ from teaserpp_tpu_torch.solvers.rotation import (
 )
 from teaserpp_tpu_torch.solvers.scale import select_scale_inliers, solve_scale_tls
 from teaserpp_tpu_torch.solvers.translation import solve_translation_tls
+
+
+# Events (2K a problem, K = N(N-1)/2 TIM pairs) that the unknown-scale
+# branch of ``register_pair`` sweeps at once: its TIM norms, TLS scale and
+# pair-mask graph run on chunks of ``max(1, SCALE_CHUNK_EVENTS // 2K)``
+# problems. ``scalar_tls`` keeps ~79 B an event alive at its peak (17.96 GB
+# for 64 problems of N = 1,889 on an H100), so a batch's peak stays near 22
+# GB however large it is (chunks of 75 problems at N = 1,889). A fixed
+# count, not one sized by free memory: the chunking, and with it the
+# timing, depends on the shapes alone.
+SCALE_CHUNK_EVENTS = 1 << 28
+
+# Chunks and events the unknown-scale branch swept, counted at each chunk
+# (as :data:`ops.cuda_kernels.LAUNCHES` counts launches).
+SCALE_SWEEP = {"chunks": 0, "events": 0}
+
+
+def reset_scale_sweep() -> None:
+    for k in SCALE_SWEEP:
+        SCALE_SWEEP[k] = 0
 
 
 class ScaleStageResult(NamedTuple):
@@ -220,16 +243,15 @@ def device_clique_from_adjacency(
                            _StageClock(None, adj.device), "clique")
 
 
-def _clique_from_pairs(pair_mask, n, params, valid, clock) -> torch.Tensor:
-    if params.resolved_inlier_selection_mode() == InlierSelectionMode.NONE:
-        mask = torch.ones((pair_mask.shape[0], n), dtype=torch.bool, device=pair_mask.device)
-        mask = mask if valid is None else mask & valid
-        clock.mark("clique")
-        return mask
+def _words_from_pairs(pair_mask: torch.Tensor, n: int,
+                      valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, K) pair mask -> the (B, W, N) row-packed words of its symmetric
+    adjacency, padded vertices (``valid`` False) masked out of rows and
+    columns."""
     adj = adjacency_from_pair_mask(pair_mask, n)
     if valid is not None:
         adj = adj & valid[:, None, :] & valid[:, :, None]
-    return _select_inliers(pack_bits_u32_rows(adj), n, params, valid, clock, "clique")
+    return pack_bits_u32_rows(adj)
 
 
 def device_clique_stage(
@@ -244,8 +266,11 @@ def device_clique_stage(
     adjacency and selects on it as :func:`device_clique_from_adjacency`
     (reference registration.cc:609-654).
     """
-    return _clique_from_pairs(pair_mask, n, params, valid,
-                              _StageClock(None, pair_mask.device))
+    if params.resolved_inlier_selection_mode() == InlierSelectionMode.NONE:
+        mask = torch.ones((pair_mask.shape[0], n), dtype=torch.bool, device=pair_mask.device)
+        return mask if valid is None else mask & valid
+    return _select_inliers(_words_from_pairs(pair_mask, n, valid), n, params, valid,
+                           _StageClock(None, pair_mask.device), "clique")
 
 
 def _polish_rt(src, dst, scale, rotation, translation, inlier_mask):
@@ -391,11 +416,14 @@ def register_pair(
     (the returned ``scale_pair_mask`` is then (B, 0)); unknown scale, or
     NONE, runs the scale stage over the (B, K) TIM norms, in Gram form with
     ``use_matmul_norms`` (which the bits branch ignores, as in JAX), and
-    returns its pair mask. Pass a dict as ``stage_ms`` to have the host wall
-    time of each stage (``bits``, ``peel`` or ``scale``, ``clique``; then
-    ``greedy`` where the greedy clique ran; then ``chain_tims``,
-    ``rotation``, ``translation``) added to it; this synchronises the device
-    after every stage.
+    returns its pair mask; its norms, TLS scale and graph run on chunks of
+    problems (:func:`_chunked_scale_stage`). Pass a dict as ``stage_ms`` to
+    have the host wall time of each stage (``bits``, ``peel``; or ``scale``,
+    ``scale_graph`` (the pair-mask scatter and packing, without NONE), each
+    summed over the chunks, then ``clique``, the peel; then ``greedy`` where
+    the greedy clique ran; then ``chain_tims``, ``rotation``,
+    ``translation``) added to it; this synchronises the device after every
+    stage.
     """
     mode = params.resolved_inlier_selection_mode()
     dev = resolve_device(device)
@@ -420,11 +448,54 @@ def register_pair(
         del bits
         scale = torch.ones((bsz,), dtype=src.dtype, device=dev)
         return rotation_translation_stage(src, dst, scale, clique_mask, params, stage_ms)
-    sc = scale_stage(src, dst, params, valid=valid, use_matmul_norms=use_matmul_norms)
-    clock.mark("scale")
-    clique_mask = _clique_from_pairs(sc.pair_mask, n, params, valid, clock)
-    sol = rotation_translation_stage(src, dst, sc.scale, clique_mask, params, stage_ms)
-    return sol._replace(scale_pair_mask=sc.pair_mask)
+    graph = mode != InlierSelectionMode.NONE
+    scale, pair_mask, words = _chunked_scale_stage(src, dst, params, valid, graph,
+                                                   use_matmul_norms, clock)
+    if graph:
+        clique_mask = _select_inliers(words, n, params, valid, clock, "clique")
+        del words
+    else:
+        clique_mask = valid.clone()
+        clock.mark("clique")
+    sol = rotation_translation_stage(src, dst, scale, clique_mask, params, stage_ms)
+    return sol._replace(scale_pair_mask=pair_mask)
+
+
+def _chunked_scale_stage(src, dst, params, valid, graph: bool, use_matmul_norms: bool,
+                         clock: _StageClock):
+    """:func:`scale_stage` and, with ``graph``, the packed pair-mask words,
+    over a (B, 3, N) batch in chunks of problems -> ``(scale (B,), pair_mask
+    (B, K), words (B, W, N) or None)``.
+
+    A chunk holds ``max(1, SCALE_CHUNK_EVENTS // 2K)`` problems. The problems
+    are independent and every step works on each problem's own row in an
+    order set by its length alone (a stable sort, fixed-order prefix sums, a
+    per-row argmin), so the outputs are bit for bit those of one chunk. The
+    clock adds each chunk's norms and TLS to ``scale`` and its scatter and
+    packing to ``scale_graph``.
+    """
+    bsz, _, n = src.shape
+    k = n * (n - 1) // 2
+    per = max(1, SCALE_CHUNK_EVENTS // max(1, 2 * k))
+    dev = src.device
+    scale = torch.empty((bsz,), dtype=src.dtype, device=dev)
+    pair_mask = torch.empty((bsz, k), dtype=torch.bool, device=dev)
+    words = (torch.empty((bsz, (n + 31) // 32, n), dtype=torch.int32, device=dev)
+             if graph else None)
+    for lo in range(0, bsz, per):
+        hi = min(bsz, lo + per)
+        sc = scale_stage(src[lo:hi], dst[lo:hi], params, valid=valid[lo:hi],
+                         use_matmul_norms=use_matmul_norms)
+        scale[lo:hi] = sc.scale
+        pair_mask[lo:hi] = sc.pair_mask
+        SCALE_SWEEP["chunks"] += 1
+        SCALE_SWEEP["events"] += 2 * k * (hi - lo)
+        clock.mark("scale")
+        if graph:
+            words[lo:hi] = _words_from_pairs(sc.pair_mask, n, valid[lo:hi])
+            clock.mark("scale_graph")
+        del sc
+    return scale, pair_mask, words
 
 
 # The JAX package's name for its ``vmap`` of ``register_pair``; the port's

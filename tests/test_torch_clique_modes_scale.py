@@ -53,8 +53,8 @@ def test_unknown_scale_modes_match_jax(mode, threshold, differing):
     differs = (got.clique_mask != top.clique_mask).any(axis=-1)
     assert np.flatnonzero(differs).tolist() == differing
     greedy = ["greedy"] if differing else []
-    assert list(stage_ms) == ["scale", "clique", *greedy, "chain_tims", "rotation",
-                              "translation"]
+    assert list(stage_ms) == ["scale", "scale_graph", "clique", *greedy, "chain_tims",
+                              "rotation", "translation"]
 
 
 def test_use_matmul_norms_matches_jax():

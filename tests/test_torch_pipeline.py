@@ -156,7 +156,9 @@ def test_register_batch_unknown_scale_matches_jax(scaled_batch, mode):
     stage_ms = {}
     got = solution_to_numpy(register_batch(src, dst, params_from_jax(jp), valid,
                                            device="cpu", stage_ms=stage_ms))
-    assert set(stage_ms) == {"scale", "clique", "chain_tims", "rotation", "translation"}
+    graph = ["scale_graph"] if mode != "NONE" else []  # NONE builds no graph
+    assert set(stage_ms) == {"scale", *graph, "clique", "chain_tims", "rotation",
+                             "translation"}
     for f in ("valid", "scale_pair_mask", "clique_mask", "rotation_inlier_mask",
               "translation_inlier_mask", "rotation_iterations"):
         np.testing.assert_array_equal(getattr(got, f), np.asarray(getattr(want, f)), f)
