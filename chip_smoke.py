@@ -42,7 +42,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    problem), and (7, 333)'s scattered validity with two problems skipped;
    beside each, the bound of the row words its lanes read and of the words
    read once. Its wrapper refuses a wrong dtype, shape or device, and its
-   launch rows too long for shared memory, counting nothing;
+   launch rows too long for shared memory, counting nothing. Kernel S
+   (``tls_sweep``, the scale TLS's sweep) against its plain version on the
+   card, equal hashes of the estimates and costs and six launches a call,
+   timed beside its bound (16 B an event) with peak memory and one profiled
+   call: one chunk of the unknown-scale batch (75 bunny problems at
+   N = 1,889, s = 2.5, a cloud each: 267,482,400 events) in float32, and 4
+   of them in float64;
 4. batched path: ``solve_batch`` on 512 bunny-shaped problems (N=1889, 1700
    outlier draws with replacement, so ~59% outliers; bench.py's parameters)
    with every launch count set to 0 just before and read just after; every
@@ -187,8 +193,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 Phases 10-12, 15 and 18-23 run no TRIM kernel (as in the JAX package,
 their route reaches no Pallas kernel): each sets the launch counts to 0
 before and requires them to read 0 after; phases 10 and 11 (PMC_EXACT's
-host search) also no greedy clique kernel. Then one ``{"kernels": [...]}``
-line and, last, the device line. Without CUDA, or without the package beside it, it
+host search) also no greedy clique kernel. Phases 11 and 12 (unknown scale)
+must launch kernel S, phases 4 and 10 (known scale) must not. Then one
+``{"kernels": [...]}`` line and, last, the device line. Without CUDA, or without the package beside it, it
 exits non-zero and prints no result.
 """
 
@@ -227,6 +234,8 @@ FACADE_SCALE = 1.4  # the defaults phase's scale (tests/test_registration_e2e.py
 # alike (scripts/jax_scale_reference.py on the CPU): the clique gate's floor
 JAX_FACADE_CLIQUE = 767
 FACADE_PARITY_N = 300
+TLS_SWEEP_BATCH = 75  # one chunk of the unknown-scale batch at N = 1,889: 267,482,400 events
+TLS_SWEEP_SCALE = 2.5  # the unknown-scale cell's
 SCALE_BATCH = 64  # scripts/bench_scale_est.py's defaults
 SCALE_N = 500
 SCALE_NOISE_BOUND = 0.01
@@ -742,6 +751,7 @@ def kernel_phase(device, seed: int = 0) -> dict:
         del s, d
 
     results["greedy_clique"] = greedy_phase(device, inputs)
+    results["tls_sweep"] = tls_sweep_phase(device)
     return results
 
 
@@ -825,6 +835,80 @@ def greedy_phase(device, inputs: dict) -> list:
             bound_row_bytes=row_bytes,
             words_once_ms=rows.numel() * 4 / HBM_BYTES_PER_S * 1e3))
         del members, sizes, want_members, want_sizes
+    return results
+
+
+def tls_sweep_cases(device) -> list:
+    """Kernel S's inputs on ``device``, [(case, perm, x, ranges, vmask)], as
+    ``solve_scale_tls`` hands them to ``scalar_tls``: the raw scales and
+    half-intervals of the TIM pairs of ``TLS_SWEEP_BATCH`` bunny problems
+    at N = 1,889 with s = 2.5, a cloud each (one chunk of the unknown-scale
+    batch), in float32; and of 4 of them in float64."""
+    import torch
+    from teaserpp_tpu_torch.ops.tims import compute_tim_norms
+
+    src, dst = _to(device, *make_problems(TLS_SWEEP_BATCH, N_POINTS, shared_cloud=False,
+                                          scale=TLS_SWEEP_SCALE))
+    src_norms, dst_norms = compute_tim_norms(src), compute_tim_norms(dst)
+    del src, dst
+    cases = []
+    for name, dtype, bsz in (("chunk", torch.float32, TLS_SWEEP_BATCH),
+                             ("float64", torch.float64, 4)):
+        sn, dn = src_norms[:bsz].to(dtype), dst_norms[:bsz].to(dtype)
+        safe = torch.where(sn > 0, sn, torch.ones_like(sn))
+        x, ranges, vmask = dn / safe, 2.0 * NOISE_BOUND / safe, (sn > 0).to(dtype)
+        perm = torch.sort(torch.cat([x - ranges, x + ranges], dim=-1), dim=-1,
+                          stable=True).indices
+        cases.append((name, perm, x, ranges, vmask))
+        del sn, dn, safe
+    return cases
+
+
+def tls_sweep_phase(device) -> list:
+    """Kernel S against its plain version at :func:`tls_sweep_cases`'
+    shapes: equal hashes of the estimates and costs, both timed, the
+    kernel's launches counted (pack, totals, a carry level each, sweep),
+    peak memory above the inputs, one call profiled, and the bound: each
+    pass reads an event's int64 permutation entry, 16 B an event at the
+    memory's rate."""
+    import torch
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+
+    def peak_bytes(fn):
+        if device.type != "cuda":
+            return None
+        _sync(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        fn()
+        _sync(device)
+        return torch.cuda.max_memory_allocated(device) - base
+
+    results = []
+    for name, perm, x, ranges, vmask in tls_sweep_cases(device):
+        ck.reset_launches()
+        got = ck.tls_sweep(perm, x, ranges, vmask)
+        _sync(device)
+        launches = ck.LAUNCHES["tls_sweep"]
+        want = ck.tls_sweep_plain(perm, x, ranges, vmask)
+        got_hash = _hash(*(t.cpu().numpy() for t in got))
+        want_hash = _hash(*(t.cpu().numpy() for t in want))
+        events = perm.numel()
+        res = dict(
+            case=name, batch=int(x.shape[0]), n=int(x.shape[-1]), events=events,
+            dtype=str(x.dtype), hash=got_hash, plain_hash=want_hash,
+            equal=got_hash == want_hash and launches == (
+                3 + len(ck._carry_strides(-(-2 * int(x.shape[-1]) // 64)))
+                if device.type == "cuda" else 0),
+            launches=launches, scale_min=float(got[0].min()), scale_max=float(got[0].max()),
+            ms=time_ms(lambda: ck.tls_sweep(perm, x, ranges, vmask), 20, device),
+            plain_ms=time_ms(lambda: ck.tls_sweep_plain(perm, x, ranges, vmask), 3, device),
+            bound_ms=16 * events / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            peak_bytes=peak_bytes(lambda: ck.tls_sweep(perm, x, ranges, vmask)),
+            plain_peak_bytes=peak_bytes(lambda: ck.tls_sweep_plain(perm, x, ranges, vmask)),
+            profile=device_busy_phase(device, lambda: ck.tls_sweep(perm, x, ranges, vmask)))
+        results.append(res)
+        del got, want, perm, x, ranges, vmask
     return results
 
 
@@ -994,6 +1078,8 @@ def path_phase(device, src, dst, repeats: int = 5):
             f"{int((~sol_np.valid).sum())} invalid"
         )
     _require_launched(device, launches, "solve_batch", ["trim_bits"])
+    if launches["tls_sweep"]:  # the known-scale branch sweeps no scale TLS
+        raise AssertionError(f"the known-scale batch launched kernel S: {launches}")
 
     windows = []
     for _ in range(3):
@@ -1262,6 +1348,10 @@ def facade_phase(device, scale: float, repeats: int = 3) -> dict:
     _require_no_launch(launches, "RobustRegistrationSolver.solve")
     if launches["greedy_clique"]:  # PMC_EXACT's host search, not the greedy
         raise AssertionError(f"the facade launched the greedy clique kernel: {launches}")
+    if params.estimate_scaling:
+        _require_launched(device, launches, "RobustRegistrationSolver.solve", ["tls_sweep"])
+    elif launches["tls_sweep"]:
+        raise AssertionError(f"the known-scale facade launched kernel S: {launches}")
 
     out = dict(
         n=N_POINTS, estimate_scaling=params.estimate_scaling, true_scale=scale,
@@ -1315,6 +1405,7 @@ def scale_batch_phase(device, problems, repeats: int = 3):
     first_s = time.perf_counter() - t0
     launches = dict(ck.LAUNCHES)
     _require_no_launch(launches, "solve_batch with estimate_scaling")
+    _require_launched(device, launches, "solve_batch with estimate_scaling", ["tls_sweep"])
     peak_gb = ((torch.cuda.max_memory_allocated(device) - base_bytes) / 1e9
                if on_card else None)
 

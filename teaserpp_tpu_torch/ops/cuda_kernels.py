@@ -14,6 +14,10 @@ Counterpart of ``teaserpp_tpu/ops/pallas_kernels.py``:
   it runs every step of the batched greedy clique
   (``clique/heuristic.py``), which the JAX package writes as a ``vmap``ped
   ``lax.while_loop``, in one launch.
+* ``tls_sweep`` (``csrc/tls_sweep.cu``, kernel S) replaces no Pallas kernel:
+  it sweeps the sorted events of the scale TLS (``ops/tls.py::scalar_tls``),
+  which the JAX package writes as ``jnp`` sorts and cumulative sums, in
+  four to six launches, each counted.
 
 As in the JAX package, of the three TRIM kernels only ``trim_bits`` sits on
 a solver path; the other two are public operations of this module. All
@@ -37,9 +41,10 @@ import torch
 from teaserpp_tpu_torch.clique.kcore import pack_bits_u32_rows
 from teaserpp_tpu_torch.ops import _build
 from teaserpp_tpu_torch.ops.tims import _pdist2, trim_pred_sq
+from teaserpp_tpu_torch.ops.tls import _SCAN_BLOCK, prefix_sum
 
 LAUNCHES = {"trim_bits": 0, "trim_bits_slab": 0, "trim_degrees": 0, "trim_adjacency_i8": 0,
-            "greedy_clique": 0}
+            "greedy_clique": 0, "tls_sweep": 0}
 
 # Pairs per chunk of the plain version: bounds its float intermediates to a
 # few hundred MB whatever the batch and N.
@@ -113,7 +118,7 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
         raise ValueError(f"{name} must be contiguous")
 
 
-_POINTER, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_POINTER, _INT, _LONG, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 # argument types of each library's ``<name>_launch``
 _LAUNCH_ARGTYPES = {
@@ -129,6 +134,15 @@ _LAUNCH_ARGTYPES = {
     # rows, order, allowed, members, sizes, batch, n, seeds, stream
     "greedy_clique": [_POINTER, _POINTER, _POINTER, _POINTER, _POINTER, _INT, _INT, _INT,
                       _POINTER],
+    # x, ranges, vmask, packed, count, f64, stream
+    "tls_pack": [_POINTER, _POINTER, _POINTER, _POINTER, _LONG, _INT, _POINTER],
+    # in, out, rows, len, stride, stream
+    "tls_carry": [_POINTER, _POINTER, _LONG, _LONG, _LONG, _POINTER],
+    # perm, packed, totals, last, batch, n, tiles, f64, stream
+    "tls_totals": [_POINTER, _POINTER, _POINTER, _POINTER, _INT, _INT, _LONG, _INT, _POINTER],
+    # perm, packed, carry, last, tile_cost, tile_x_hat, batch, n, tiles, f64, stream
+    "tls_sweep": [_POINTER, _POINTER, _POINTER, _POINTER, _POINTER, _POINTER, _INT, _INT, _LONG,
+                  _INT, _POINTER],
 }
 
 
@@ -407,3 +421,132 @@ def greedy_clique(
             order.data_ptr(), allowed.data_ptr(), members.data_ptr(), sizes.data_ptr(),
             bsz, n, num_seeds)
     return members, sizes
+
+
+def tls_sweep_plain(
+    perm: torch.Tensor, x: torch.Tensor, ranges: torch.Tensor, vmask: torch.Tensor
+) -> tuple:
+    """Plain PyTorch version of kernel S: the sweep of ``ops/tls.py::scalar_tls``.
+
+    ``x``, ``ranges``, ``vmask`` (..., N) of one float dtype (``vmask`` 1 for
+    a measurement, 0 for padding), ``perm`` (..., 2N) int64 the stable sort
+    of the events ``[x - ranges, x + ranges]`` -> ``(estimate, cost)``
+    (...,): the candidate of least cost, in ``torch.argmin``'s order. Each
+    running quantity of the reference's sweep is a stream of signed deltas
+    (+q opening, -q closing; reference registration.cc:63-68), gathered and
+    scanned by :func:`prefix_sum`, one stream at a time, so only its scan
+    outlives the stream; the candidate after each event is the weighted mean
+    of the open set, its cost the unweighted squared residual of the open
+    set plus the ranges of the closed ones, in the JAX package's float order.
+    """
+    w = vmask / torch.where(vmask > 0, ranges * ranges, torch.ones_like(x))
+
+    def running(q):
+        return prefix_sum(torch.gather(torch.cat([q, -q], dim=-1), -1, perm))
+
+    # invalid measurements add nothing (q is 0 there). The ranges' total is
+    # the last of their fixed-order prefix sums, not ``torch.sum``, whose
+    # order on the card follows the number of rows: so a problem's bits do
+    # not depend on the batch it is solved in.
+    total_rng = prefix_sum(ranges * vmask)[..., -1:]
+    card = running(vmask)
+    cum_w = running(w)
+    cum_xw = running(w * x)
+    cum_rng = -running(ranges * vmask)  # outlier penalty: closing adds the range back
+    cum_sx = running(x * vmask)
+    cum_sx2 = running(x * x * vmask)
+    outlier_pen = total_rng + cum_rng
+
+    have_consensus = card > 0.5
+    safe_w = torch.where(have_consensus, cum_w, torch.ones_like(cum_w))
+    x_hat = cum_xw / safe_w
+    residual = card * x_hat * x_hat + cum_sx2 - 2.0 * cum_sx * x_hat
+    cost = residual + outlier_pen
+    cost = torch.where(have_consensus, cost, torch.full_like(cost, float("inf")))
+
+    min_idx = torch.argmin(cost, dim=-1, keepdim=True)
+    estimate = torch.gather(x_hat, -1, min_idx)[..., 0]
+    best_cost = torch.gather(cost, -1, min_idx)[..., 0]
+    return estimate, best_cost
+
+
+# Events a block of kernel S sweeps (a tile): 32 scan blocks of 64, as
+# ``csrc/tls_sweep.cu``'s kTileBlocks, which the launch checks.
+_TLS_TILE_EVENTS = 32 * _SCAN_BLOCK
+
+
+def _carry_strides(blocks: int) -> list:
+    """Strides of the carry's levels for rows of ``blocks`` totals: the
+    powers of 64 below ``blocks``, and 1 always."""
+    strides = [1]
+    while strides[-1] * _SCAN_BLOCK < blocks:
+        strides.append(strides[-1] * _SCAN_BLOCK)
+    return strides
+
+
+def tls_sweep(
+    perm: torch.Tensor, x: torch.Tensor, ranges: torch.Tensor, vmask: torch.Tensor
+) -> tuple:
+    """The sweep of the scale TLS: kernel S's wrapper.
+
+    Arguments and results as :func:`tls_sweep_plain`'s, float32 or float64,
+    on one device. On the CPU this is :func:`tls_sweep_plain`; on CUDA the
+    launches of ``csrc/tls_sweep.cu`` run on the current stream without
+    synchronising, each counted in ``LAUNCHES["tls_sweep"]``: one packs each
+    measurement's x, range, mask and weight into one entry; one writes the
+    64-event block totals of the six streams and of the ranges' row; one a
+    level scans the totals (the carry of :func:`prefix_sum`; levels 64^l
+    below the row's ``ceil(2N / 64)`` blocks, at least one: three at N =
+    1,889); and one sweeps the events in tiles of ``_TLS_TILE_EVENTS`` and
+    writes each tile's first minimum, which ``torch.argmin`` reduces. The
+    bits are the plain version's on the CPU. No measurement (N = 0), or a
+    batch beyond the launch's grid, raises.
+    """
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"tls_sweep runs on cuda or cpu, not {x.device}")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"x has dtype {x.dtype}, expected float32 or float64")
+    lead, n = tuple(x.shape[:-1]), x.shape[-1]
+    for name, t, dtype, shape in (("ranges", ranges, x.dtype, x.shape),
+                                  ("vmask", vmask, x.dtype, x.shape),
+                                  ("perm", perm, torch.int64, (*lead, 2 * n))):
+        if t.device != x.device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} is {t.dtype} {tuple(t.shape)} on {t.device}, expected "
+                             f"{dtype} {tuple(shape)} on {x.device}")
+    if x.device.type == "cpu":
+        return tls_sweep_plain(perm, x, ranges, vmask)
+    if n == 0:
+        raise ValueError("tls_sweep needs at least one measurement a row")
+    bsz = int(np.prod(lead, dtype=np.int64))
+    if bsz == 0:
+        empty = torch.empty(lead, dtype=x.dtype, device=x.device)
+        return empty, empty.clone()
+    x, ranges, vmask, perm = (t.contiguous() for t in (x, ranges, vmask, perm))
+    if perm.data_ptr() % 16:  # the kernel loads a lane's two entries at once
+        perm = perm.clone()
+    blocks = -(-2 * n // _SCAN_BLOCK)
+    tiles = -(-2 * n // _TLS_TILE_EVENTS)
+    f64 = int(x.dtype == torch.float64)
+    packed = torch.empty((bsz, n, 4), dtype=x.dtype, device=x.device)
+    _launch("tls_sweep", "tls_sweep", x.device, x.data_ptr(), ranges.data_ptr(),
+            vmask.data_ptr(), packed.data_ptr(), bsz * n, f64, entry="tls_pack")
+    totals = torch.empty((bsz, 7, blocks), dtype=torch.float64, device=x.device)
+    last = torch.empty((bsz,), dtype=torch.float64, device=x.device)
+    _launch("tls_sweep", "tls_sweep", x.device, perm.data_ptr(), packed.data_ptr(),
+            totals.data_ptr(), last.data_ptr(), bsz, n, tiles, f64, entry="tls_totals")
+    # the carry: the totals' scan, one launch a level l, the passes k in
+    # [64^l, 64^(l+1)) of the scan
+    carry, spare = totals, torch.empty_like(totals)
+    for stride in _carry_strides(blocks):
+        _launch("tls_sweep", "tls_sweep", x.device, carry.data_ptr(), spare.data_ptr(),
+                bsz * 7, blocks, stride, entry="tls_carry")
+        carry, spare = spare, carry
+    del totals, spare
+    tile_cost = torch.empty((bsz, tiles), dtype=x.dtype, device=x.device)
+    tile_x_hat = torch.empty_like(tile_cost)
+    _launch("tls_sweep", "tls_sweep", x.device, perm.data_ptr(), packed.data_ptr(),
+            carry.data_ptr(), last.data_ptr(), tile_cost.data_ptr(), tile_x_hat.data_ptr(),
+            bsz, n, tiles, f64)
+    best = torch.argmin(tile_cost, dim=-1, keepdim=True)
+    return (torch.gather(tile_x_hat, -1, best).reshape(lead),
+            torch.gather(tile_cost, -1, best).reshape(lead))

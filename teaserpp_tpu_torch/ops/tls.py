@@ -7,13 +7,15 @@ prefix sums of each running quantity of the reference's sweep give every
 candidate estimate and its cost.
 
 The JAX package carries the event streams through one unstable
-multi-operand sort; here a stable sort of the positions gathers each
+multi-operand sort; here a stable sort of the positions orders the events,
+and :func:`ops.cuda_kernels.tls_sweep` sweeps them: on the card kernel S
+(``csrc/tls_sweep.cu``), on the CPU its plain version, which gathers each
 stream, one stream at a time. Events at equal positions may come out in
 another order, which can change the prefix sums only inside a tie. The
-prefix sums are :func:`prefix_sum`, a float64 scan whose order of additions
-is fixed by the length alone, so equal inputs give equal bits on every run,
-on the CPU and the card alike (``torch.cumsum`` on CUDA floats promises
-neither).
+prefix sums are :func:`prefix_sum`'s, a float64 scan whose order of
+additions is fixed by the length alone, so equal inputs give equal bits on
+every run, on the CPU and the card alike (``torch.cumsum`` on CUDA floats
+promises neither).
 """
 
 from __future__ import annotations
@@ -91,42 +93,13 @@ def scalar_tls(
     x = x.to(dtype)
     ranges = ranges.to(dtype)
     vmask = torch.ones_like(x) if valid is None else valid.to(dtype)
-    w = vmask / torch.where(vmask > 0, ranges * ranges, torch.ones_like(x))
 
     perm = torch.sort(torch.cat([x - ranges, x + ranges], dim=-1), dim=-1,
                       stable=True).indices
+    # imported here: ops.cuda_kernels imports this module
+    from teaserpp_tpu_torch.ops.cuda_kernels import tls_sweep
 
-    def running(q):
-        """Prefix sums, over the sorted events, of the signed deltas of a
-        per-measurement quantity ``q`` (+q opening, -q closing; reference
-        registration.cc:63-68). One stream is built, gathered and scanned at
-        a time, so only its scan outlives the call."""
-        return prefix_sum(torch.gather(torch.cat([q, -q], dim=-1), -1, perm))
-
-    # invalid measurements add nothing (q is 0 there). The ranges' total is
-    # the last of their fixed-order prefix sums, not ``torch.sum``, whose
-    # order on the card follows the number of rows: so a problem's bits do
-    # not depend on the batch it is solved in.
-    total_rng = prefix_sum(ranges * vmask)[..., -1:]
-    card = running(vmask)
-    cum_w = running(w)
-    cum_xw = running(w * x)
-    cum_rng = -running(ranges * vmask)  # outlier penalty: closing adds the range back
-    cum_sx = running(x * vmask)
-    cum_sx2 = running(x * x * vmask)
-    outlier_pen = total_rng + cum_rng
-
-    have_consensus = card > 0.5
-    safe_w = torch.where(have_consensus, cum_w, torch.ones_like(cum_w))
-    x_hat = cum_xw / safe_w
-    residual = card * x_hat * x_hat + cum_sx2 - 2.0 * cum_sx * x_hat
-    cost = residual + outlier_pen
-    cost = torch.where(have_consensus, cost, torch.full_like(cost, float("inf")))
-
-    min_idx = torch.argmin(cost, dim=-1, keepdim=True)
-    estimate = torch.gather(x_hat, -1, min_idx)[..., 0]
-    best_cost = torch.gather(cost, -1, min_idx)[..., 0]
-
+    estimate, best_cost = tls_sweep(perm, x, ranges, vmask)
     inliers = (torch.abs(x - estimate[..., None]) <= ranges) & (vmask > 0)
     return ScalarTLSResult(estimate=estimate, inliers=inliers, cost=best_cost)
 

@@ -58,9 +58,10 @@ from teaserpp_tpu_torch.solvers.translation import solve_translation_tls
 # Events (2K a problem, K = N(N-1)/2 TIM pairs) that the unknown-scale
 # branch of ``register_pair`` sweeps at once: its TIM norms, TLS scale and
 # pair-mask graph run on chunks of ``max(1, SCALE_CHUNK_EVENTS // 2K)``
-# problems. ``scalar_tls`` keeps ~79 B an event alive at its peak (17.96 GB
-# for 64 problems of N = 1,889 on an H100), so a batch's peak stays near 22
-# GB however large it is (chunks of 75 problems at N = 1,889). A fixed
+# problems. ``scalar_tls``'s plain sweep (the CPU's) keeps ~79 B an event
+# alive at its peak (17.96 GB for 64 problems of N = 1,889), kernel S on the
+# card far less, so a batch's peak stays bounded however large it is (9.4 GB
+# on an H100 at B = 512: chunks of 75 problems at N = 1,889). A fixed
 # count, not one sized by free memory: the chunking, and with it the
 # timing, depends on the shapes alone.
 SCALE_CHUNK_EVENTS = 1 << 28

@@ -106,7 +106,7 @@ def test_wrappers_on_cpu_are_plain_and_uncounted(rng):
     s, d = _t(src), _t(dst)
     before = dict(ck.LAUNCHES)
     assert set(before) == {"trim_bits", "trim_bits_slab", "trim_degrees", "trim_adjacency_i8",
-                           "greedy_clique"}
+                           "greedy_clique", "tls_sweep"}
     assert torch.equal(ck.trim_degrees(s, d, BETA), ck.trim_degrees_plain(s, d, BETA))
     assert torch.equal(ck.trim_adjacency_i8(s, d, BETA),
                        ck.trim_adjacency_i8_plain(s, d, BETA))
