@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
-"""The JAX package's results on ``chip_smoke.py``'s facade and unknown-scale
-problems, on the CPU.
+"""The JAX package's results on the facade and unknown-scale problems of
+``tests/chip_support.py``, on the CPU.
 
     python3 scripts/jax_scale_reference.py [--x64]
 
-1. The facade problems of ``chip_smoke.py``'s phases 10 and 11 (N=1889,
-   PMC_EXACT, known scale and s=1.4), solved by the JAX package's
+1. The facade problems of ``tests/test_torch_chip_paths.py::test_facade``
+   (N=1889, PMC_EXACT, known scale and s=1.4), solved by the JAX package's
    ``RobustRegistrationSolver`` (float32, or float64 with ``--x64``): errors
    against the planted transform, clique size, stage seconds. The clique
    size is the floor of the port's clique gate (``JAX_FACADE_CLIQUE``).
-2. The 64 unknown-scale problems of phase 12 (B=64, N=500): the scale
-   estimate of the JAX package's batched ``solve_batch`` in float32 beside
-   the port's ``scale_stage`` in float32 and in float64 (on the CPU, in
-   chunks of 8 problems): each against the truth and against each other.
+2. The 64 unknown-scale problems of ``test_unknown_scale_batch`` (B=64,
+   N=500): the scale estimate of the JAX package's batched ``solve_batch``
+   in float32 beside the port's ``scale_stage`` in float32 and in float64
+   (on the CPU, in chunks of 8 problems): each against the truth and
+   against each other.
 
 Prints one JSON line; about a minute.
 """
@@ -38,8 +39,9 @@ def main(argv=None) -> int:
     import jax.numpy as jnp
     import torch
 
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    import chip_smoke as cs
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path[:0] = [root, os.path.join(root, "tests")]
+    import chip_support as cs
     from teaserpp_tpu import RobustRegistrationSolver, RobustRegistrationSolverParams
     from teaserpp_tpu.params import InlierSelectionMode
     from teaserpp_tpu.parallel import solve_batch

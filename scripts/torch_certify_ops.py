@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Times the DRS certifier's float64 operations on the card at the shapes its
-paths give them (``chip_smoke.py`` phases 20-22), one JSON line each:
+paths give them (``tests/test_torch_chip_certification.py``), one JSON line each:
 
 * ``torch.linalg.eigh`` of (32, 404, 404) against 32 single calls (whether
   the installed torch runs the batch as one solver call), and of 404², 2000²,

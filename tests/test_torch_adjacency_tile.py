@@ -9,7 +9,7 @@ neighbours' pairs, and against the JAX package's Pallas kernel (interpret
 mode). The kernel's write schedule and its stores are modelled here: every
 block of the output is stored once, and every byte once, with the right
 value, at any alignment of the output. The kernel itself is held against the plain version on the card, byte for byte,
-by ``chip_smoke.py``.
+by ``tests/test_torch_chip_kernels.py``.
 """
 
 import math

@@ -5,7 +5,7 @@ both packages, float64: a GNC-TLS over the chain, a 150-TIM subset that
 keeps every outlier, GNC again on the subset (the same subset, outliers,
 theta and GNC iterations as JAX; R within 1e-12), then the port's
 ``certify_checkpointed`` on synth100k. scene60k's certification (~2,300
-iterations) runs on the card only (chip_smoke.py).
+iterations) runs on the card only (``tests/test_torch_chip_certification.py``).
 """
 
 import os

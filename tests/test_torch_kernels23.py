@@ -2,7 +2,7 @@
 ``trim_adjacency_i8`` CUDA kernels against the Pallas kernels they replace
 (interpret mode) and against the port's own bit words and dense adjacency.
 The CUDA kernels themselves are held against these plain versions on the card
-by ``chip_smoke.py``.
+by ``tests/test_torch_chip_kernels.py``.
 """
 
 import numpy as np

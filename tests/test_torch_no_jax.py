@@ -33,7 +33,11 @@ from teaserpp_tpu_torch.features import (
 from teaserpp_tpu_torch.solvers.icp import icp_point_to_point
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "teaserpp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# The port, and the files that run it on the card, which run where JAX is not
+PORT_FILES = (sorted((ROOT / "teaserpp_tpu_torch").rglob("*.py"))
+              + [ROOT / "tests" / "chip_support.py", ROOT / "tests" / "test_torch_tls_sweep.py",
+                 ROOT / "scripts" / "torch_kernel_times.py"]
+              + sorted((ROOT / "tests").glob("test_torch_chip_*.py")))
 
 
 def _imported_modules(path):

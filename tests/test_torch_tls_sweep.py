@@ -4,10 +4,13 @@ On the card (tests marked ``chip``; they skip without CUDA) ``scalar_tls``
 through the kernel gives bit for bit what the plain version gives on the CPU:
 rows of N measurements below, on and across the 64-event scan blocks, with
 ties, duplicates, padding, no valid measurement and a NaN, in float32 and
-float64; and the unknown-scale batch solve at N = 1,889 gives equal bits in
-one chunk of problems and in several. On the CPU the wrapper is the plain
-version and launches nothing. The file imports no JAX, so on a machine with a
-card and without JAX:
+float64; at one chunk of the unknown-scale batch (75 problems at N = 1,889,
+267,482,400 events) in float32 and 4 of them in float64, the kernel on the
+card hashes as the plain version on the card does, in 6 launches a call; and
+the unknown-scale batch solve at N = 1,889 gives equal bits in one chunk of
+problems and in several. On the CPU the wrapper is the plain version and
+launches nothing. The file imports no JAX, so on a machine with a card and
+without JAX:
 
     python -m pytest tests/test_torch_tls_sweep.py -m chip --noconftest -p no:cacheprovider
 """
@@ -18,19 +21,12 @@ import numpy as np
 import pytest
 import torch
 
+from chip_support import cuda_card, hash_arrays, tls_sweep_case  # noqa: F401 (a fixture)
 from teaserpp_tpu_torch.ops import cuda_kernels as ck
 from teaserpp_tpu_torch.ops.tls import ScalarTLSResult, scalar_tls
 
 LENGTHS = [1, 2, 31, 32, 33, 1000, 1889]
 DTYPES = [torch.float32, torch.float64]
-
-
-@pytest.fixture
-def cuda_card():
-    """The CUDA device, decided when the test runs; a skip without one."""
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: kernel S runs only on the card")
-    return torch.device("cuda", 0)
 
 
 def _rows(n: int, dtype: torch.dtype, seed: int = 0):
@@ -139,6 +135,19 @@ def test_leading_dimensions_and_a_float32_range(cuda_card):
     assert empty.estimate.shape == (0, 3) and empty.inliers.shape == (0, 3, 333)
     with pytest.raises(ValueError):
         scalar_tls(x[..., :0].to(cuda_card), r[..., :0].to(cuda_card))
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("case", ["chunk", "float64"])
+def test_one_chunk_of_the_unknown_scale_batch_hashes_as_the_plain_version(case, cuda_card):
+    perm, x, ranges, vmask = tls_sweep_case(case, cuda_card)
+    ck.reset_launches()
+    got = ck.tls_sweep(perm, x, ranges, vmask)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["tls_sweep"] == _launches(x.shape[-1]) == 6
+    want = ck.tls_sweep_plain(perm, x, ranges, vmask)
+    assert hash_arrays(*(t.cpu().numpy() for t in got)) == hash_arrays(
+        *(t.cpu().numpy() for t in want))
 
 
 def _unknown_scale_batch(batch: int):

@@ -3,7 +3,8 @@
 The plain PyTorch version of the ``trim_bits`` CUDA kernel must equal, word
 for word on the same float32 inputs, the Pallas kernel (interpret mode), the
 XLA stripe path and the dense adjacency packed per problem. The CUDA kernel
-itself is held against the plain version on the card by ``chip_smoke.py``.
+itself is held against the plain version on the card by
+``tests/test_torch_chip_kernels.py``.
 """
 
 import numpy as np

@@ -7,7 +7,7 @@ against the plain PyTorch version and against the JAX package's Pallas kernel
 (interpret mode), also at pairs that sit exactly on the threshold. The
 kernels' task numbering is modelled here and must cover every unordered
 32x32 block of pairs once. The kernels themselves, and their compiled task
-decode, are held on the card by ``chip_smoke.py``.
+decode, are held on the card by ``tests/test_torch_chip_kernels.py``.
 """
 
 import math
@@ -116,7 +116,7 @@ def test_pallas_interpret_words_are_symmetric_and_equal_plain(rng, case):
 # hold the numbering scheme (that such a schedule covers the triangle once,
 # and that an integer-corrected square root decodes it at any size); they do
 # not run the CUDA source. The compiled ``decode_task`` itself is held by
-# ``chip_smoke.py``, which reads it back through the built library's
+# ``tests/test_torch_chip_kernels.py``, which reads it back through the built library's
 # ``trim_bits_decode_tasks`` and makes the same two checks on it.
 _HEADER = Path(ck.__file__).resolve().parent.parent / "csrc" / "trim_tile.cuh"
 COL_BLOCKS = int(re.search(r"constexpr int kColBlocks = (\d+);", _HEADER.read_text()).group(1))
