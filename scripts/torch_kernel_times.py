@@ -14,7 +14,9 @@ Rows, at the table's shapes and on tests/chip_support.py's inputs: K1
 (``greedy_clique``, 64 seeds) on K1's words of 512 bunny problems,
 ``solve_large_sharded``'s 2,048-vertex subgraph and (7, 333) padded; kernel
 S (``tls_sweep``) on one chunk of the unknown-scale batch in float32 and on
-4 of its problems in float64.
+4 of its problems in float64; kernel R (``gnc_tls``, the GNC-TLS rotation
+loop) on the chain TIMs of the 512 bunny problems' top cores, (512, 1889)
+float32, and of the first alone, (1, 1889).
 
 Times are CUDA events around one call, the median of 20 calls for a kernel
 and of 3 for its plain version, each after one call to warm up. Bounds are
@@ -86,6 +88,7 @@ def main() -> int:
         GREEDY_CASES,
         GREEDY_SEEDS,
         adjacency_case,
+        gnc_tls_case,
         greedy_case,
         kernel_inputs,
         slab_cases,
@@ -180,6 +183,20 @@ def main() -> int:
                lambda: ck.tls_sweep_plain(perm, x, ranges, vmask),
                **least(nbytes=SWEEP_BYTES_PER_EVENT * perm.numel()))
         del perm, x, ranges, vmask
+
+    for case in ("bunny_batch", "facade"):
+        args = gnc_tls_case(case, "cuda", inputs)
+        bsz, d, n = args["src"].shape
+        _, _, cost, rounds = ck.gnc_tls(**args)
+        # a pass reads each column's src, dst and valid once: H and the weights
+        # a round, and round 0's largest residual where it goes on (a break
+        # at mu0 <= 0 leaves the cost infinite and skips the weights' pass)
+        passes = 2 * rounds.long() + torch.where(torch.isinf(cost), -1, 1)
+        column_bytes = 2 * d * args["src"].element_size() + (args["valid"] is not None)
+        report("R", [bsz, n, str(args["src"].dtype)], lambda: ck.gnc_tls(**args),
+               lambda: ck.gnc_tls_plain(**args),
+               **least(nbytes=int(passes.sum()) * n * column_bytes),
+               rounds=[int(rounds.min()), int(rounds.max())])
 
     for name, so in _build.build_all().items():
         log = pathlib.Path(str(so) + ".log")

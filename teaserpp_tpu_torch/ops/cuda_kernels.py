@@ -18,6 +18,10 @@ Counterpart of ``teaserpp_tpu/ops/pallas_kernels.py``:
   it sweeps the sorted events of the scale TLS (``ops/tls.py::scalar_tls``),
   which the JAX package writes as ``jnp`` sorts and cumulative sums, in
   four to six launches, each counted.
+* ``gnc_tls`` (``csrc/gnc_tls.cu``, kernel R) replaces no Pallas kernel: it
+  runs every round of the GNC-TLS rotation loop
+  (``solvers/rotation.py::_solve_gnc_tls``), which the JAX package writes as
+  a ``vmap``ped ``lax.while_loop``, in one launch, one block a problem.
 
 As in the JAX package, of the three TRIM kernels only ``trim_bits`` sits on
 a solver path; the other two are public operations of this module. All
@@ -40,11 +44,12 @@ import torch
 
 from teaserpp_tpu_torch.clique.kcore import pack_bits_u32_rows
 from teaserpp_tpu_torch.ops import _build
+from teaserpp_tpu_torch.ops.procrustes import rotate, svd_rot, svd_rot_2d
 from teaserpp_tpu_torch.ops.tims import _pdist2, trim_pred_sq
 from teaserpp_tpu_torch.ops.tls import _SCAN_BLOCK, prefix_sum
 
 LAUNCHES = {"trim_bits": 0, "trim_bits_slab": 0, "trim_degrees": 0, "trim_adjacency_i8": 0,
-            "greedy_clique": 0, "tls_sweep": 0}
+            "greedy_clique": 0, "tls_sweep": 0, "gnc_tls": 0}
 
 # Pairs per chunk of the plain version: bounds its float intermediates to a
 # few hundred MB whatever the batch and N.
@@ -118,7 +123,8 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
         raise ValueError(f"{name} must be contiguous")
 
 
-_POINTER, _INT, _LONG, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_POINTER, _INT, _LONG, _FLOAT, _DOUBLE = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                                         ctypes.c_float, ctypes.c_double)
 
 # argument types of each library's ``<name>_launch``
 _LAUNCH_ARGTYPES = {
@@ -143,6 +149,10 @@ _LAUNCH_ARGTYPES = {
     # perm, packed, carry, last, tile_cost, tile_x_hat, batch, n, tiles, f64, stream
     "tls_sweep": [_POINTER, _POINTER, _POINTER, _POINTER, _POINTER, _POINTER, _INT, _INT, _LONG,
                   _INT, _POINTER],
+    # src, dst, valid, noise_bound, noise_bound_all, rotation, weights, cost, iterations,
+    # batch, d, n, gnc_factor, max_iterations, cost_threshold, f64, stream
+    "gnc_tls": [_POINTER, _POINTER, _POINTER, _POINTER, _DOUBLE, _POINTER, _POINTER, _POINTER,
+                _POINTER, _INT, _INT, _LONG, _DOUBLE, _INT, _DOUBLE, _INT, _POINTER],
 }
 
 
@@ -550,3 +560,168 @@ def tls_sweep(
     best = torch.argmin(tile_cost, dim=-1, keepdim=True)
     return (torch.gather(tile_x_hat, -1, best).reshape(lead),
             torch.gather(tile_cost, -1, best).reshape(lead))
+
+
+def _gnc_tls_weight_update(residuals_sq, weights, mu, noise_bound_sq, valid_f):
+    """Closed-form TLS weight update (reference registration.cc:827-844).
+
+    ``mu`` and ``noise_bound_sq`` are (..., 1); the cost uses the previous
+    weights.
+    """
+    th1 = (mu + 1.0) / mu * noise_bound_sq
+    th2 = mu / (mu + 1.0) * noise_bound_sq
+    cost = torch.sum(weights * residuals_sq, dim=-1)
+    safe_r = torch.clamp(residuals_sq, min=1e-30)
+    interp = torch.sqrt(noise_bound_sq * mu * (mu + 1.0) / safe_r) - mu
+    new_w = torch.where(
+        residuals_sq >= th1,
+        torch.zeros_like(weights),
+        torch.where(residuals_sq <= th2, torch.ones_like(weights), interp),
+    )
+    return cost, new_w * valid_f
+
+
+def gnc_tls_plain(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    noise_bound,
+    gnc_factor: float,
+    max_iterations: int,
+    cost_threshold: float,
+    valid,
+    procrustes,
+):
+    """Plain PyTorch version of kernel R: the GNC-TLS loop over a batch of
+    (B, d, N) inputs, the 3-D solve with ``procrustes=svd_rot``, the 2-D
+    (Quatro) with ``svd_rot_2d``.
+
+    One Python loop serves the batch: each round updates every problem still
+    running, freezes the carry of the others with ``torch.where`` and makes
+    one host sync for all of them, so each problem stops after the same
+    ``iterations`` as in JAX. ``noise_bound`` is a float or a (B,) tensor;
+    ``valid`` (B, N) bool masks padding, and an invalid column carries zero
+    weight throughout. Returns (R (B, d, d), weights (B, N), cost (B,),
+    iterations (B,) int32).
+    """
+    dtype, dev = src.dtype, src.device
+    bsz, d, n = src.shape
+    valid_f = (
+        torch.ones((bsz, n), dtype=dtype, device=dev)
+        if valid is None else valid.to(dtype)
+    )
+    # noise bound per problem (it depends on the scale estimate);
+    # degenerate fallback per reference registration.cc:794-796
+    nb_sq = torch.as_tensor(noise_bound, dtype=dtype, device=dev).expand(bsz) ** 2
+    nb_sq = torch.where(nb_sq < 1e-16, torch.full_like(nb_sq, 1e-2), nb_sq)[:, None]
+
+    i = torch.zeros((bsz,), dtype=torch.int32, device=dev)
+    r = torch.eye(d, dtype=dtype, device=dev).expand(bsz, d, d).clone()
+    weights = valid_f
+    mu = torch.ones((bsz, 1), dtype=dtype, device=dev)
+    prev_cost = torch.full((bsz,), float("inf"), dtype=dtype, device=dev)
+    done = torch.zeros((bsz,), dtype=torch.bool, device=dev)
+
+    while True:
+        running = (i < max_iterations) & ~done
+        if not bool(running.any()):  # the round's one host sync
+            break
+        r_new = procrustes(src, dst, weights)
+        diff = dst - rotate(r_new, src)
+        residuals_sq = torch.sum(diff * diff, dim=-2) * valid_f
+
+        # mu initialization on the first iteration (reference
+        # registration.cc:814-825); mu <= 0 means residuals are already tiny
+        max_residual = residuals_sq.amax(dim=-1, keepdim=True)
+        mu0 = 1.0 / (2.0 * max_residual / nb_sq - 1.0)
+        is_first = (i == 0)[:, None]
+        mu_new = torch.where(is_first, mu0, mu)
+        degenerate = is_first & (mu_new <= 0)
+
+        new_cost, new_w = _gnc_tls_weight_update(
+            residuals_sq, weights, mu_new, nb_sq, valid_f
+        )
+        # on the degenerate break the reference keeps the all-ones weights
+        new_w = torch.where(degenerate, weights, new_w)
+        new_cost = torch.where(degenerate[:, 0], prev_cost, new_cost)
+
+        converged = torch.abs(new_cost - prev_cost) < cost_threshold
+        new_done = degenerate[:, 0] | converged
+        mu_new = torch.where(degenerate, mu_new, mu_new * gnc_factor)
+
+        run_col = running[:, None]
+        i = torch.where(running, i + 1, i)
+        r = torch.where(running[:, None, None], r_new, r)
+        weights = torch.where(run_col, new_w, weights)
+        mu = torch.where(run_col, mu_new, mu)
+        prev_cost = torch.where(running, new_cost, prev_cost)
+        done = torch.where(running, new_done, done)
+    return r, weights, prev_cost, i
+
+
+# The Procrustes solve kernel R runs for each d
+_GNC_PROCRUSTES = {3: svd_rot, 2: svd_rot_2d}
+
+
+def gnc_tls(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    noise_bound,
+    gnc_factor: float,
+    max_iterations: int,
+    cost_threshold: float,
+    valid,
+    procrustes,
+):
+    """The GNC-TLS rotation loop: kernel R's wrapper.
+
+    Arguments and results as :func:`gnc_tls_plain`'s: ``src``/``dst``
+    (B, d, N) float32 or float64 on one device, d = 3 with ``svd_rot`` or
+    d = 2 with ``svd_rot_2d``; ``valid`` None or (B, N) bool; ``noise_bound``
+    a number or a tensor of B values (or one). On the CPU this is
+    :func:`gnc_tls_plain`; on CUDA ``csrc/gnc_tls.cu`` runs every round of
+    every problem in one launch on the current stream, one block a problem,
+    without synchronising, and writes every element of its uninitialised
+    outputs. Its sums over the N columns run in one fixed order of its own,
+    so R and the cost lie within rounding of the plain version's, and repeat
+    bit for bit. N = 0 with a round to run raises, as the plain version does.
+    """
+    if src.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"gnc_tls runs on cuda or cpu, not {src.device}")
+    if src.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"src has dtype {src.dtype}, expected float32 or float64")
+    if src.dim() != 3 or src.shape[1] not in _GNC_PROCRUSTES:
+        raise ValueError(f"src must be (B, 2 or 3, N), got {tuple(src.shape)}")
+    bsz, d, n = src.shape
+    if procrustes is not _GNC_PROCRUSTES[d]:
+        raise ValueError(f"at d = {d} the loop solves with {_GNC_PROCRUSTES[d].__name__}")
+    checks = [("dst", dst, src.dtype, (bsz, d, n))]
+    if valid is not None:
+        checks.append(("valid", valid, torch.bool, (bsz, n)))
+    for name, t, dtype, shape in checks:
+        if t.device != src.device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} is {t.dtype} {tuple(t.shape)} on {t.device}, expected "
+                             f"{dtype} {shape} on {src.device}")
+    if src.device.type == "cpu":
+        return gnc_tls_plain(src, dst, noise_bound, gnc_factor, max_iterations, cost_threshold,
+                             valid, procrustes)
+    if n == 0 and max_iterations > 0:
+        raise ValueError("gnc_tls needs at least one column a problem")
+    if isinstance(noise_bound, (int, float)):
+        nb, nb_all = None, float(noise_bound)
+    else:
+        nb = torch.as_tensor(noise_bound, dtype=src.dtype, device=src.device)
+        nb, nb_all = nb.expand(bsz).contiguous(), 0.0
+    src, dst = src.contiguous(), dst.contiguous()
+    valid = None if valid is None else valid.contiguous()
+    weights = torch.empty((bsz, n), dtype=src.dtype, device=src.device)
+    rotation = torch.empty((bsz, d, d), dtype=src.dtype, device=src.device)
+    cost = torch.empty((bsz,), dtype=src.dtype, device=src.device)
+    iterations = torch.empty((bsz,), dtype=torch.int32, device=src.device)
+    if bsz == 0:
+        return rotation, weights, cost, iterations
+    _launch("gnc_tls", "gnc_tls", src.device, src.data_ptr(), dst.data_ptr(),
+            None if valid is None else valid.data_ptr(), None if nb is None else nb.data_ptr(),
+            nb_all, rotation.data_ptr(), weights.data_ptr(), cost.data_ptr(),
+            iterations.data_ptr(), bsz, d, n, float(gnc_factor), int(max_iterations),
+            float(cost_threshold), int(src.dtype == torch.float64))
+    return rotation, weights, cost, iterations

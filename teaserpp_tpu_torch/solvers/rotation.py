@@ -2,12 +2,15 @@
 
 Counterpart of ``teaserpp_tpu/solvers/rotation.py`` (reference
 registration.cc:764-866 GNC-TLS, 280-408 Quatro, 206-278 FGR). The JAX
-package runs one ``lax.while_loop`` per problem under ``vmap``. Here one
-Python loop serves the batch: each round updates every problem still
-running, freezes the carry of the others with ``torch.where`` and makes one
-host sync for all of them, so each problem stops after the same
-``iterations`` as in JAX. Inputs are (B, 3, N) TIMs; ``valid`` (B, N) masks
-padding, and an invalid column carries zero weight throughout.
+package runs one ``lax.while_loop`` per problem under ``vmap``. Here the
+GNC-TLS loop of GNC-TLS and Quatro is kernel R on the card, every round of
+every problem in one launch (``ops/cuda_kernels.py::gnc_tls``), and its plain
+version on the CPU; FGR is one Python loop for the batch: each round updates
+every problem still running, freezes the carry of the others with
+``torch.where`` and makes one host sync for all of them. Either way each
+problem stops after the same ``iterations`` as in JAX. Inputs are (B, 3, N)
+TIMs; ``valid`` (B, N) masks padding, and an invalid column carries zero
+weight throughout.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
+from teaserpp_tpu_torch.ops import cuda_kernels
 from teaserpp_tpu_torch.ops.procrustes import (
     calculate_diameter,
     rotate,
@@ -35,25 +39,6 @@ def _colnorm_sq(a: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * a, dim=-2)
 
 
-def _gnc_tls_weight_update(residuals_sq, weights, mu, noise_bound_sq, valid_f):
-    """Closed-form TLS weight update (reference registration.cc:827-844).
-
-    ``mu`` and ``noise_bound_sq`` are (..., 1); the cost uses the previous
-    weights.
-    """
-    th1 = (mu + 1.0) / mu * noise_bound_sq
-    th2 = mu / (mu + 1.0) * noise_bound_sq
-    cost = torch.sum(weights * residuals_sq, dim=-1)
-    safe_r = torch.clamp(residuals_sq, min=1e-30)
-    interp = torch.sqrt(noise_bound_sq * mu * (mu + 1.0) / safe_r) - mu
-    new_w = torch.where(
-        residuals_sq >= th1,
-        torch.zeros_like(weights),
-        torch.where(residuals_sq <= th2, torch.ones_like(weights), interp),
-    )
-    return cost, new_w * valid_f
-
-
 def _solve_gnc_tls(
     src: torch.Tensor,
     dst: torch.Tensor,
@@ -65,62 +50,15 @@ def _solve_gnc_tls(
     procrustes,
 ):
     """GNC-TLS loop over a batch of (B, d, N) inputs, shared by the 3-D
-    (GNC-TLS, ``procrustes=svd_rot``) and 2-D (Quatro, ``svd_rot_2d``) solvers.
+    (GNC-TLS, ``procrustes=svd_rot``) and 2-D (Quatro, ``svd_rot_2d``) solvers:
+    kernel R (``ops/cuda_kernels.py::gnc_tls``) on CUDA tensors, one launch
+    for every round of every problem; its plain version
+    (``gnc_tls_plain``) on CPU tensors.
 
     Returns (R (B, d, d), weights (B, N), cost (B,), iterations (B,) int32).
     """
-    dtype, dev = src.dtype, src.device
-    bsz, d, n = src.shape
-    valid_f = (
-        torch.ones((bsz, n), dtype=dtype, device=dev)
-        if valid is None else valid.to(dtype)
-    )
-    # noise bound per problem (it depends on the scale estimate);
-    # degenerate fallback per reference registration.cc:794-796
-    nb_sq = torch.as_tensor(noise_bound, dtype=dtype, device=dev).expand(bsz) ** 2
-    nb_sq = torch.where(nb_sq < 1e-16, torch.full_like(nb_sq, 1e-2), nb_sq)[:, None]
-
-    i = torch.zeros((bsz,), dtype=torch.int32, device=dev)
-    r = torch.eye(d, dtype=dtype, device=dev).expand(bsz, d, d).clone()
-    weights = valid_f
-    mu = torch.ones((bsz, 1), dtype=dtype, device=dev)
-    prev_cost = torch.full((bsz,), float("inf"), dtype=dtype, device=dev)
-    done = torch.zeros((bsz,), dtype=torch.bool, device=dev)
-
-    while True:
-        running = (i < max_iterations) & ~done
-        if not bool(running.any()):  # the round's one host sync
-            break
-        r_new = procrustes(src, dst, weights)
-        residuals_sq = _colnorm_sq(dst - rotate(r_new, src)) * valid_f
-
-        # mu initialization on the first iteration (reference
-        # registration.cc:814-825); mu <= 0 means residuals are already tiny
-        max_residual = residuals_sq.amax(dim=-1, keepdim=True)
-        mu0 = 1.0 / (2.0 * max_residual / nb_sq - 1.0)
-        is_first = (i == 0)[:, None]
-        mu_new = torch.where(is_first, mu0, mu)
-        degenerate = is_first & (mu_new <= 0)
-
-        new_cost, new_w = _gnc_tls_weight_update(
-            residuals_sq, weights, mu_new, nb_sq, valid_f
-        )
-        # on the degenerate break the reference keeps the all-ones weights
-        new_w = torch.where(degenerate, weights, new_w)
-        new_cost = torch.where(degenerate[:, 0], prev_cost, new_cost)
-
-        converged = torch.abs(new_cost - prev_cost) < cost_threshold
-        new_done = degenerate[:, 0] | converged
-        mu_new = torch.where(degenerate, mu_new, mu_new * gnc_factor)
-
-        run_col = running[:, None]
-        i = torch.where(running, i + 1, i)
-        r = torch.where(running[:, None, None], r_new, r)
-        weights = torch.where(run_col, new_w, weights)
-        mu = torch.where(run_col, mu_new, mu)
-        prev_cost = torch.where(running, new_cost, prev_cost)
-        done = torch.where(running, new_done, done)
-    return r, weights, prev_cost, i
+    return cuda_kernels.gnc_tls(src, dst, noise_bound, gnc_factor, max_iterations,
+                                cost_threshold, valid, procrustes)
 
 
 def solve_rotation_gnc_tls(

@@ -45,6 +45,11 @@ FACADE_SCALE = 1.4  # the library defaults' problem's scale (tests/test_registra
 JAX_FACADE_CLIQUE = 767
 TLS_SWEEP_BATCH = 75  # one chunk of the unknown-scale batch at N = 1,889: 267,482,400 events
 TLS_SWEEP_SCALE = 2.5  # the unknown-scale cell's
+# Kernel R's many-round batch: rotated clouds, noise within the bound, 70% outliers
+GNC_BATCH = 64
+GNC_N = 1000
+GNC_OUTLIERS = 0.7
+GNC_NOISE_BOUND = 0.01
 SCALE_BATCH = 64  # scripts/bench_scale_est.py's defaults
 SCALE_N = 500
 SCALE_NOISE_BOUND = 0.01
@@ -489,3 +494,106 @@ def frontend_gate(name: str, res, r_true, t_true) -> dict:
     assert (np.isfinite(sol.rotation).all() and np.isfinite(sol.translation).all()
             and out["rot_err_deg"] < 0.1 and out["trans_err_m"] < 0.01), f"{name}: {out}"
     return out
+
+
+GNC_CASES = ["bunny_batch", "facade", "outliers_100", "outliers_1", "degenerate",
+             "noise_bounds", "float64", "quatro", "complete_graph", "large"]
+
+
+def _top_core_mask(src, dst, valid, beta):
+    """Each problem's top k-core of K1's graph (the known-scale batch's
+    KCORE_HEU clique)."""
+    from teaserpp_tpu_torch.clique.kcore import core_numbers_from_bits
+    from teaserpp_tpu_torch.ops import cuda_kernels as ck
+
+    core = core_numbers_from_bits(ck.trim_bits(src, dst, valid, beta), src.shape[-1], valid)
+    return (core >= core.amax(dim=-1, keepdim=True)) & valid
+
+
+def gnc_outlier_problems(batch: int, n: int, seed: int = 0):
+    """Rotation-only problems that take GNC-TLS through many rounds: points
+    uniform in [-1, 1]^3, a uniform random rotation each, uniform noise
+    +-nb/2, ``GNC_OUTLIERS`` of ``dst`` uniform in [-1, 1]^3, and the last
+    problem's second half padding -> (src, dst (B, 3, n) float32, valid)."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-1, 1, (batch, 3, n))
+    rot = np.stack([_rotation(rng) for _ in range(batch)])
+    dst = rot @ src + rng.uniform(-GNC_NOISE_BOUND / 2, GNC_NOISE_BOUND / 2, (batch, 3, n))
+    k = int(GNC_OUTLIERS * n)
+    dst[:, :, :k] = rng.uniform(-1, 1, (batch, 3, k))
+    valid = np.ones((batch, n), bool)
+    valid[-1, n // 2:] = False
+    return src.astype(np.float32), dst.astype(np.float32), valid
+
+
+def gnc_tls_case(name: str, device, inputs: dict) -> dict:
+    """Kernel R's inputs on ``device`` -> the keyword arguments of
+    ``cuda_kernels.gnc_tls`` (``src``, ``dst``, ``noise_bound``,
+    ``gnc_factor``, ``max_iterations``, ``cost_threshold``, ``valid``,
+    ``procrustes``):
+
+    * "bunny_batch": the chain TIMs of the top k-cores of the 512 bunny
+      problems of ``kernel_inputs``'s "main" (a quarter padded), with the
+      rotation stage's noise bound per problem and the bunny's cost
+      threshold 0.005; "facade": the first of them alone;
+    * "outliers_100", "outliers_1": :func:`gnc_outlier_problems` with 100
+      rounds at most and with 1;
+    * "degenerate": noise-free data (mu0 <= 0 stops it in round 0), a
+      problem with no valid column, and one of the outlier problems;
+    * "noise_bounds": the outlier problems, each with its own noise bound
+      from 1 to 2 times the one their noise keeps to, the first 0 (the 1e-2
+      fallback of its square);
+    * "float64": the outlier problems in float64;
+    * "quatro": their XY rows (strided views) with the 2-D Procrustes;
+    * "complete_graph": the facade's COMPLETE formulation, every pair TIM of
+      the first bunny problem's top core (~293,000 columns);
+    * "large": the chain TIMs of the planted inliers of the N=100,000
+      problem (``solve_large_sharded``'s width).
+    """
+    import torch
+    from teaserpp_tpu_torch.ops.procrustes import svd_rot, svd_rot_2d
+    from teaserpp_tpu_torch.ops.tims import chain_tims
+
+    args = dict(gnc_factor=1.4, max_iterations=100, cost_threshold=1e-6, procrustes=svd_rot)
+    if name in ("bunny_batch", "facade", "complete_graph"):
+        s_np, d_np, v_np, beta = inputs["main"]
+        if name != "bunny_batch":
+            s_np, d_np, v_np = s_np[:1], d_np[:1], v_np[:1]
+        src, dst, valid = to_device(device, s_np, d_np, v_np)
+        mask = _top_core_mask(src, dst, valid, beta)
+        nb = torch.full((src.shape[0],), 2.0 * NOISE_BOUND, dtype=src.dtype, device=device)
+        args.update(cost_threshold=0.005, noise_bound=nb)
+        if name == "complete_graph":
+            idx = torch.nonzero(mask[0])[:, 0]
+            i, j = torch.triu_indices(idx.numel(), idx.numel(), 1, device=device)
+            src_t = (src[0][:, idx[j]] - src[0][:, idx[i]])[None]
+            dst_t = (dst[0][:, idx[j]] - dst[0][:, idx[i]])[None]
+            return dict(args, src=src_t.contiguous(), dst=dst_t.contiguous(), valid=None)
+        src_t, tim_valid = chain_tims(src, mask)
+        dst_t, _ = chain_tims(dst, mask)
+        return dict(args, src=src_t, dst=dst_t, valid=tim_valid)
+    if name == "large":
+        src, dst, _, _, inlier = make_large_problem(LARGE_N)
+        src, dst, mask = to_device(device, src[None], dst[None], inlier[None])
+        src_t, tim_valid = chain_tims(src, mask)
+        dst_t, _ = chain_tims(dst, mask)
+        return dict(args, src=src_t, dst=dst_t, valid=tim_valid,
+                    noise_bound=2.0 * LARGE_NOISE_BOUND)
+    s_np, d_np, v_np = gnc_outlier_problems(GNC_BATCH, GNC_N)
+    if name == "degenerate":
+        s_np, d_np, v_np = s_np[:3].copy(), d_np[:3].copy(), v_np[:3].copy()
+        d_np[0] = s_np[0]  # noise-free: every residual 0
+        v_np[1] = False
+    src, dst, valid = to_device(device, s_np, d_np, v_np)
+    args.update(src=src, dst=dst, valid=valid, noise_bound=GNC_NOISE_BOUND)
+    if name == "outliers_1":
+        args.update(max_iterations=1)
+    elif name == "noise_bounds":
+        nb = np.linspace(1.0, 2.0, GNC_BATCH) * GNC_NOISE_BOUND
+        nb[0] = 0.0
+        args.update(noise_bound=torch.as_tensor(nb, dtype=src.dtype, device=device))
+    elif name == "float64":
+        args.update(src=src.double(), dst=dst.double())
+    elif name == "quatro":
+        args.update(src=src[:, :2], dst=dst[:, :2], procrustes=svd_rot_2d)
+    return args

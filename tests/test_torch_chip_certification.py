@@ -71,7 +71,8 @@ def cert_subset(device, name: str) -> dict:
 def test_certify_saved_problem(name, subset_outliers, cuda_card, tmp_path):
     """ITERATIVE, rank 128, 25-iteration segments, 20 rounds of 200, the
     checkpoint in a temporary directory: certified, synth100k with gap 0,
-    scene60k with gap < 1e-3."""
+    scene60k with gap < 1e-3. The subset's two GNC-TLS solves are kernel
+    R's launches; the certifier launches nothing."""
     ck.reset_launches()
     sub = cert_subset(cuda_card, name)
     params = DRSCertifierParams(noise_bound=sub["noise_bound"],
@@ -82,7 +83,7 @@ def test_certify_saved_problem(name, subset_outliers, cuda_card, tmp_path):
                                checkpoint_path=str(tmp_path / "ck.npz"), checkpoint_every=2,
                                rounds=20, device=cuda_card)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == launched()
+    assert ck.LAUNCHES == launched(gnc_tls=2)
     assert int((sub["theta"] < 0).sum()) == subset_outliers
     assert res.is_optimal, res.best_suboptimality
     if name == "synth100k":

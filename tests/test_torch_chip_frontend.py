@@ -94,13 +94,15 @@ def test_synth100k_registration(synth100k):
     """<0.1 deg and <0.01 m against the planted transform; at least as many
     correspondences and as large a clique as the JAX package found. Up to
     16,384 matches the solve takes its dense branch, as in JAX: no TRIM
-    kernel, the greedy clique kernel on the subgraph."""
+    kernel, the greedy clique kernel on the subgraph; kernel R for the
+    rotation."""
     corr, _, res, launches, truth = synth100k
     gate = frontend_gate("synth100k", res, *truth)
     assert len(corr) >= JAX_FRONTEND_CORRESPONDENCES
     assert gate["clique_size"] >= JAX_FRONTEND_CLIQUE
     dense = len(corr) <= DENSE_N  # solve_large_sharded's blocked_threshold
-    assert launches == launched(trim_bits=0 if dense else 1, greedy_clique=1), len(corr)
+    assert launches == launched(trim_bits=0 if dense else 1, greedy_clique=1, gnc_tls=1), \
+        len(corr)
 
 
 def plain_nn(queries, database, chunk: int = 256):
@@ -237,7 +239,7 @@ def test_fpfh_facade_teaser_and_icp(cuda_card):
     ``Matcher``, ``RobustRegistrationSolver`` (PMC_EXACT, noise bound 0.05)
     and ICP from its result: over 80% of the correspondences the identity,
     TEASER's gate, ICP <0.01 deg; no TRIM kernel and no greedy on this
-    route."""
+    route, kernel R once for the facade's rotation."""
     from teaserpp_tpu_torch.solvers.icp import icp_point_to_point
     from teaserpp_tpu_torch.utils.geometry import PointCloud
 
@@ -256,7 +258,7 @@ def test_fpfh_facade_teaser_and_icp(cuda_card):
         return corr, sol, icp
 
     (corr, sol, icp), launches = run_counted(run)
-    assert launches == launched()
+    assert launches == launched(gnc_tls=1)
     assert np.mean([i == j for i, j in corr]) > 0.8
     assert sol.valid
     teaser_gate(sol.rotation, sol.translation, r_true, t_true)
@@ -314,13 +316,14 @@ def test_cli_bunny_demo(ply_files, cuda_card):
 
 
 def test_cli_in_this_process_launches_no_kernel(ply_files):
-    """``cli.main`` with ``--fpfh`` on the card: TEASER's gate, no launch."""
+    """``cli.main`` with ``--fpfh`` on the card: TEASER's gate, kernel R once
+    (the facade's rotation) and no other launch."""
     from teaserpp_tpu_torch import cli
 
     _, _, r_true, t_true = make_patch()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc, launches = run_counted(lambda: cli.main(_fpfh_argv(ply_files) + ["--device", "cuda"]))
-    assert rc == 0 and launches == launched()
+    assert rc == 0 and launches == launched(gnc_tls=1)
     out = json.loads(buf.getvalue().strip().splitlines()[-1])
     teaser_gate(out["rotation"], out["translation"], r_true, t_true)

@@ -4,7 +4,10 @@ rank's row slab), K2 (``trim_degrees``), K3 (``trim_adjacency_i8``) and the
 greedy clique (``greedy_clique``), at the shapes of PERF.md's table of
 kernels and at small hard ones; the tile kernels' compiled task numbering,
 the launches the wrappers refuse, and the bound of K3's approximate square
-root over every float. Kernel S is held in ``tests/test_torch_tls_sweep.py``.
+root over every float. Kernel R (``gnc_tls``, the GNC-TLS loop) against its
+plain version on the card, one test a case: equal rounds and inlier masks,
+R and the cost within rounding, its bits repeating. Kernel S is held in
+``tests/test_torch_tls_sweep.py``.
 
 Each output a kernel receives uninitialised lands on an allocator block
 filled with a pattern first, so a word that no thread stores shows as a
@@ -22,21 +25,27 @@ import torch
 
 from chip_support import (
     ADJACENCY_CASES,
+    GNC_CASES,
     GREEDY_CASES,
     GREEDY_SEEDS,
     LARGE_N,
     N_POINTS,
     adjacency_case,
     cuda_card,  # noqa: F401 (a fixture)
+    gnc_tls_case,
     greedy_case,
+    hash_arrays,
     kernel_inputs,
+    launched,
     poison_allocator,
+    run_counted,
     slab_cases,
     to_device,
 )
 from teaserpp_tpu_torch.clique.kcore import active_degrees
 from teaserpp_tpu_torch.ops import _build
 from teaserpp_tpu_torch.ops import cuda_kernels as ck
+from teaserpp_tpu_torch.ops.procrustes import svd_rot
 from teaserpp_tpu_torch.ops.tims import trim_adjacency_dense
 
 pytestmark = pytest.mark.chip
@@ -99,20 +108,30 @@ def test_tile_tasks_decode_at_the_ends_of_each_word_row(words, cuda_card):
 
 REFUSALS = ["trim_bits batch", "trim_degrees batch", "trim_adjacency_i8 batch",
             "greedy_clique dtype", "greedy_clique shape", "greedy_clique device",
-            "greedy_clique launch"]
+            "greedy_clique launch", "gnc_tls dtype", "gnc_tls shape", "gnc_tls device",
+            "gnc_tls procrustes", "gnc_tls no column", "gnc_tls launch"]
 
 
 @pytest.mark.parametrize("case", REFUSALS)
 def test_what_a_launch_does_not_take_raises_and_counts_nothing(case, cuda_card):
     """A batch beyond the tile grid's second axis; the greedy clique's wrong
     dtype, shape and device, and rows too long for a block's shared memory
-    (n = 1,000,000: 31,250 words a row; refused before a pointer is read)."""
+    (n = 1,000,000: 31,250 words a row; refused before a pointer is read);
+    kernel R's half-precision points, a 4-D problem, ``dst`` on the host, the
+    3-D Procrustes asked for a 2-D problem, problems with no column, and a
+    4-D problem handed to the launch itself (refused before a pointer is
+    read)."""
     s = torch.zeros(65536, 3, 1, device=cuda_card)
     v = torch.ones(65536, 1, dtype=torch.bool, device=cuda_card)
     rows = torch.zeros(2, 40, 2, dtype=torch.int32, device=cuda_card)
     order = torch.arange(40, dtype=torch.int32, device=cuda_card).repeat(2, 1)
     allowed = torch.full((2, 2), -1, dtype=torch.int32, device=cuda_card)
+    pts = torch.ones(2, 3, 40, device=cuda_card)
     tile, greedy = RuntimeError, (TypeError, ValueError, RuntimeError)
+
+    def gnc(src=pts, dst=pts, procrustes=svd_rot):
+        return ck.gnc_tls(src, dst, 0.01, 1.4, 100, 1e-6, None, procrustes)
+
     raises, call = {
         "trim_bits batch": (tile, lambda: ck.trim_bits(s, s, v, 0.01)),
         "trim_degrees batch": (tile, lambda: ck.trim_degrees(s, s, 0.01)),
@@ -123,6 +142,14 @@ def test_what_a_launch_does_not_take_raises_and_counts_nothing(case, cuda_card):
         "greedy_clique device": (greedy, lambda: ck.greedy_clique(rows, order.cpu(), allowed, 4)),
         "greedy_clique launch": (greedy, lambda: ck._launch(
             "greedy_clique", "greedy_clique", cuda_card, 0, 0, 0, 0, 0, 1, 1_000_000, 64)),
+        "gnc_tls dtype": (TypeError, lambda: gnc(pts.half(), pts.half())),
+        "gnc_tls shape": (ValueError, lambda: gnc(pts.repeat(1, 2, 1)[:, :4], pts[:, :, :4])),
+        "gnc_tls device": (ValueError, lambda: gnc(dst=pts.cpu())),
+        "gnc_tls procrustes": (ValueError, lambda: gnc(pts[:, :2], pts[:, :2])),
+        "gnc_tls no column": (ValueError, lambda: gnc(pts[:, :, :0], pts[:, :, :0])),
+        "gnc_tls launch": (RuntimeError, lambda: ck._launch(
+            "gnc_tls", "gnc_tls", cuda_card, 0, 0, 0, 0, 0.01, 0, 0, 0, 0, 2, 4, 40, 1.4, 100,
+            1e-6, 0)),
     }[case]
     ck.reset_launches()
     with pytest.raises(raises):
@@ -206,3 +233,88 @@ def test_greedy_clique_equals_plain(case, inputs, cuda_card):
     assert members.data_ptr() == poisoned_at, "not on the filled block"
     want_members, want_sizes = ck.greedy_clique_plain(rows, order, allowed, seeds)
     assert torch.equal(members, want_members) and torch.equal(sizes, want_sizes)
+
+
+def _gnc_tolerances(dtype):
+    """(R, relative cost) tolerances of kernel R against its plain version.
+    The two take their sums over the N columns in other orders, so H, the
+    max residual and the cost differ by a few ulps of each sum; R moves by
+    that over the Procrustes' eigengap (~1e-7 in float32). A weight between
+    0 and 1 is ``sqrt(nb^2 mu (mu + 1) / r) - mu``, whose cancellation at
+    mu ~ 1.4^rounds (1e7 after 50 rounds) turns those ulps into ~1e-3 of a
+    weight in float32, and the cost, a sum of weights times residuals, by up
+    to ~1e-4 of itself; 1e-3 leaves room. Float64 has 2^29 times less
+    rounding."""
+    return (1e-5, 1e-3) if dtype == torch.float32 else (1e-9, 1e-9)
+
+
+def _gnc_agree(got, want, rows, args) -> None:
+    """Kernel R's outputs ``got`` against the plain version's ``want`` on the
+    problems ``rows``: equal inlier masks (weights >= 0.5; >= 0.4 for
+    Quatro), R and the cost within ``_gnc_tolerances``."""
+    threshold = 0.5 if args["procrustes"] is svd_rot else 0.4
+    assert torch.equal(got[1][rows] >= threshold, want[1][rows] >= threshold)
+    r_tol, cost_tol = _gnc_tolerances(args["src"].dtype)
+    torch.testing.assert_close(got[0][rows], want[0][rows], rtol=0.0, atol=r_tol)
+    torch.testing.assert_close(got[2][rows], want[2][rows], rtol=cost_tol, atol=0.0)
+
+
+def _gnc_ties(args, got, want) -> list:
+    """The problems whose rounds differ, each checked to stop at a tie: with
+    both versions cut at k - 1 and at k rounds (k the fewer), they agree
+    there (``_gnc_agree``), and the cost change of round k lies below
+    ``cost_threshold`` in one and not in the other, so the two stopping
+    tests fell on either side of the threshold by rounding alone."""
+    ties = torch.nonzero(got[3] != want[3])[:, 0].tolist()
+    for p in ties:
+        k = int(min(got[3][p], want[3][p]))
+        cut = [[fn(**dict(args, max_iterations=m)) for m in (k - 1, k)]
+               for fn in (ck.gnc_tls, ck.gnc_tls_plain)]
+        stops = []
+        for before, at in cut:
+            assert int(at[3][p]) == k
+            stops.append(bool(abs(at[2][p] - before[2][p]) < args["cost_threshold"]))
+        for m in (0, 1):
+            _gnc_agree(cut[0][m], cut[1][m], [p], args)
+        assert stops[0] != stops[1], (p, k)
+    return ties
+
+
+# The bunny's problems, on which every problem takes the same rounds
+GNC_BUNNY = ("bunny_batch", "facade", "complete_graph")
+
+
+@pytest.mark.parametrize("case", GNC_CASES)
+def test_gnc_tls_equals_plain(case, inputs, cuda_card):
+    """One launch, the weights on a block filled first; equal rounds, and
+    ``_gnc_agree``, on every problem, except on the synthetic cases a
+    problem whose stopping test falls on the threshold within rounding
+    (``_gnc_ties``; cost thresholds of 1e-6 against costs of ~1e-2)."""
+    args = gnc_tls_case(case, cuda_card, inputs)
+    bsz, _, n = args["src"].shape
+    poisoned_at = poison_allocator(cuda_card, (bsz, n), args["src"].dtype)
+    got, launches = run_counted(lambda: ck.gnc_tls(**args))
+    assert launches == launched(gnc_tls=1)
+    assert got[1].data_ptr() == poisoned_at, "not on the filled block"
+    want = ck.gnc_tls_plain(**args)
+    ties = _gnc_ties(args, got, want)
+    assert not (ties and case in GNC_BUNNY), ties
+    same = [p for p in range(bsz) if p not in ties]
+    _gnc_agree(got, want, same, args)
+    if case == "degenerate":  # mu0 <= 0, and no valid column: round 0 stops both
+        assert got[3][:2].tolist() == [1, 1] and bool(torch.isinf(got[2][:2]).all())
+    if case == "outliers_100":
+        assert int(got[3].min()) >= 10
+
+
+def test_gnc_tls_repeats_bit_for_bit_and_alone(inputs, cuda_card):
+    """The bunny batch three times, hashing alike; and problems solved alone,
+    equal bit for bit to their rows of the batch (a block a problem, every
+    sum in one fixed order)."""
+    args = gnc_tls_case("bunny_batch", cuda_card, inputs)
+    outs = [ck.gnc_tls(**args) for _ in range(3)]
+    assert len({hash_arrays(*(t.cpu().numpy() for t in out)) for out in outs}) == 1
+    for p in (0, 255, 511):
+        one = {k: args[k][p:p + 1] for k in ("src", "dst", "valid", "noise_bound")}
+        alone = ck.gnc_tls(**dict(args, **one))
+        assert all(torch.equal(a[0], b[p]) for a, b in zip(alone, outs[0])), p

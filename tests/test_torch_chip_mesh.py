@@ -243,12 +243,16 @@ def test_rank_launches(rank, ranks):
     """(a): K1's slab once in the heuristic solve, twice in the exact one
     (its heuristic bound and its prune), whose host search on the first rank
     takes its subgraph's words from K1, and the greedy once in each; (b):
-    the greedy alone; (c): K1 on the rank's half of the batch."""
+    the greedy alone; (c): K1 on the rank's half of the batch. Every rank
+    solves each rotation with kernel R: once in (a)'s heuristic solve, twice
+    in the exact one (its bound's and the exact clique's), once in (b) and
+    (c)."""
     assert ranks[rank][1] == {
-        "large": launched(trim_bits_slab=1, greedy_clique=1),
-        "exact": launched(trim_bits_slab=2, trim_bits=int(rank == 0), greedy_clique=1),
-        "frontend": launched(greedy_clique=1),
-        "batch": launched(trim_bits=1),
+        "large": launched(trim_bits_slab=1, greedy_clique=1, gnc_tls=1),
+        "exact": launched(trim_bits_slab=2, trim_bits=int(rank == 0), greedy_clique=1,
+                          gnc_tls=2),
+        "frontend": launched(greedy_clique=1, gnc_tls=1),
+        "batch": launched(trim_bits=1, gnc_tls=1),
     }
 
 
@@ -290,7 +294,7 @@ def test_nccl_world_of_one(refs, cuda_card):
         dist.destroy_process_group()
     assert backend == "nccl" and not any(staged.values()), staged
     assert not _differing(got, refs["fields"], got)
-    assert launches == launched(trim_bits=4, greedy_clique=2)
+    assert launches == launched(trim_bits=4, greedy_clique=2, gnc_tls=3)
     large_gate("NCCL solve_large_sharded", _large_result_view(got, "large"), r_true, t_true,
                inlier)
 

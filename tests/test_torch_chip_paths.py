@@ -10,8 +10,9 @@ output's bits repeating in this process and in fresh ones.
 
 Each path's launches are counted from 0 and compared whole with the
 kernels its route runs (``ops/cuda_kernels.py::LAUNCHES``): a route that
-reaches no TRIM kernel in the JAX package reaches none here, and only the
-unknown-scale routes sweep with kernel S. Marked ``chip``: skips without a
+reaches no TRIM kernel in the JAX package reaches none here, only the
+unknown-scale routes sweep with kernel S, and each GNC-TLS rotation solve is
+one launch of kernel R (``gnc_tls``), every round of every problem in it. Marked ``chip``: skips without a
 CUDA card. No JAX; on a machine with an H100::
 
     python -m pytest tests/test_torch_chip_paths.py -m chip --noconftest -p no:cacheprovider
@@ -126,7 +127,7 @@ def clique_batch(cuda_card, bunny):
 def test_batch(batch):
     sol, launches = batch
     _bunny_gate(sol)
-    assert launches == launched(trim_bits=1)
+    assert launches == launched(trim_bits=1, gnc_tls=1)
 
 
 def test_batch_on_the_cpu(batch, bunny):
@@ -134,7 +135,7 @@ def test_batch_on_the_cpu(batch, bunny):
 
 
 def test_clique_mode_batch(clique_batch, bunny, cuda_card):
-    """The gate; K1 and the greedy kernel once a solve; the masks of 8
+    """The gate; K1, the greedy kernel and kernel R once a solve; the masks of 8
     problems cliques of K1's graph, read from its plain version's words on
     the host."""
     from teaserpp_tpu_torch.ops.tims import trim_beta
@@ -142,11 +143,11 @@ def test_clique_mode_batch(clique_batch, bunny, cuda_card):
 
     sol, launches = clique_batch
     _bunny_gate(sol)
-    assert launches == launched(trim_bits=1, greedy_clique=1)
+    assert launches == launched(trim_bits=1, greedy_clique=1, gnc_tls=1)
     src, dst = to_device(cuda_card, *bunny)
     _, again = run_counted(lambda: [solve_batch(src, dst, clique_params(), device=cuda_card)
                                     for _ in range(3)])
-    assert again == launched(trim_bits=3, greedy_clique=3)
+    assert again == launched(trim_bits=3, greedy_clique=3, gnc_tls=3)
 
     s, d = (torch.from_numpy(a[:8]) for a in bunny)
     valid = torch.ones(8, N_POINTS, dtype=torch.bool)
@@ -210,18 +211,19 @@ def large(cuda_card):
 def test_large(large):
     res, launches, truth = large
     large_gate("solve_large_sharded", res, *truth)
-    assert launches == launched(trim_bits=1, greedy_clique=1)
+    assert launches == launched(trim_bits=1, greedy_clique=1, gnc_tls=1)
 
 
 def test_large_exact(large, cuda_card):
-    """The same gate, and a clique no smaller than the heuristic's."""
+    """The same gate, and a clique no smaller than the heuristic's; kernel R
+    in the heuristic bound's solve and in the exact clique's."""
     src, dst, r, t, inlier = make_large_problem(LARGE_N)
     s, d = to_device(cuda_card, src, dst)
     res, launches = run_counted(lambda: solve_large_exact(
         s, d, large_params(), time_limit=EXACT_TIME_LIMIT_S, device=cuda_card))
     gate = large_gate("solve_large_exact", large_result_to_numpy(res), r, t, inlier)
     assert gate["clique_size"] >= int(large[0].clique_size)
-    assert launches == launched(trim_bits=3, greedy_clique=1)
+    assert launches == launched(trim_bits=3, greedy_clique=1, gnc_tls=2)
 
 
 def test_public_kernel_operations(cuda_card):
@@ -290,7 +292,8 @@ def test_facade(scale, cuda_card):
     """The demo (known scale) and the library's defaults (s = 1.4
     estimated): <0.1 deg, <0.01 m, |ds| < 1e-3, and a clique no smaller
     than the JAX facade's. PMC_EXACT searches on the host: no TRIM kernel
-    and no greedy; kernel S sweeps the scale in 6 launches."""
+    and no greedy; kernel S sweeps the scale in 6 launches, kernel R solves
+    the rotation in one."""
     sol, solver, launches = facade_solve(cuda_card, scale)
     assert sol.rotation.shape == (3, 3) and sol.translation.shape == (3,)
     assert np.isfinite(sol.rotation).all() and np.isfinite(sol.translation).all()
@@ -298,7 +301,8 @@ def test_facade(scale, cuda_card):
     assert rotation_error_deg(sol.rotation, T[:3, :3]) < 0.1
     assert translation_error(sol.translation, T[:3, 3]) < 0.01
     assert len(solver.getInlierMaxClique()) >= JAX_FACADE_CLIQUE
-    assert launches == (launched() if scale == 1.0 else launched(tls_sweep=6))
+    assert launches == (launched(gnc_tls=1) if scale == 1.0
+                        else launched(tls_sweep=6, gnc_tls=1))
 
 
 @pytest.fixture(scope="module")
@@ -313,14 +317,15 @@ def scale_batch(cuda_card):
 
 def test_unknown_scale_batch(scale_batch):
     """tests/test_registration_e2e.py's gate on every problem: |ds| < 1e-3,
-    <0.01 rad, <0.02; kernel S in one chunk (5 launches at N = 500)."""
+    <0.01 rad, <0.02; kernel S in one chunk (5 launches at N = 500), kernel
+    R once."""
     (_, _, s_true, r_true, t_true), sol, launches = scale_batch
     assert all(np.isfinite(a).all() for a in (sol.rotation, sol.translation, sol.scale))
     assert (np.abs(sol.scale - s_true) < 1e-3).all()
     assert all(angular_error(r, rt) < 0.01 for r, rt in zip(sol.rotation, r_true))
     assert all(translation_error(t, tt) < 0.02 for t, tt in zip(sol.translation, t_true))
     assert sol.valid.all()
-    assert launches == launched(tls_sweep=5)
+    assert launches == launched(tls_sweep=5, gnc_tls=1)
 
 
 def test_unknown_scale_batch_on_the_cpu(scale_batch):

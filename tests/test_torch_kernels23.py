@@ -13,6 +13,7 @@ import torch
 from teaserpp_tpu.ops import tims as jtims
 from teaserpp_tpu_torch.clique import kcore as tkcore
 from teaserpp_tpu_torch.ops import cuda_kernels as ck
+from teaserpp_tpu_torch.ops.procrustes import svd_rot
 from teaserpp_tpu_torch.ops import tims as ttims
 
 NOISE_BOUND = 0.005
@@ -106,7 +107,7 @@ def test_wrappers_on_cpu_are_plain_and_uncounted(rng):
     s, d = _t(src), _t(dst)
     before = dict(ck.LAUNCHES)
     assert set(before) == {"trim_bits", "trim_bits_slab", "trim_degrees", "trim_adjacency_i8",
-                           "greedy_clique", "tls_sweep"}
+                           "greedy_clique", "tls_sweep", "gnc_tls"}
     assert torch.equal(ck.trim_degrees(s, d, BETA), ck.trim_degrees_plain(s, d, BETA))
     assert torch.equal(ck.trim_adjacency_i8(s, d, BETA),
                        ck.trim_adjacency_i8_plain(s, d, BETA))
@@ -118,6 +119,8 @@ def test_wrappers_on_cpu_are_plain_and_uncounted(rng):
     allowed = torch.full((2, 3), -1, dtype=torch.int32)
     got, want = (f(rows, order, allowed, 8) for f in (ck.greedy_clique, ck.greedy_clique_plain))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+    gnc = (s, d, 0.01, 1.4, 100, 1e-6, valid, svd_rot)
+    assert all(torch.equal(g, w) for g, w in zip(ck.gnc_tls(*gnc), ck.gnc_tls_plain(*gnc)))
     assert ck.LAUNCHES == before
 
 

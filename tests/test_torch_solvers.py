@@ -19,6 +19,7 @@ from teaserpp_tpu.ops import tls as jtls
 from teaserpp_tpu.solvers import rotation as jrot
 from teaserpp_tpu.solvers import translation as jtrans
 from teaserpp_tpu_torch.device import resolve_device
+from teaserpp_tpu_torch.ops import cuda_kernels as ck
 from teaserpp_tpu_torch.ops import procrustes as tproc
 from teaserpp_tpu_torch.ops import tls as ttls
 from teaserpp_tpu_torch.solvers import rotation as trot
@@ -127,6 +128,55 @@ def test_gnc_tls_degenerate_and_iteration_cap(rng):
     np.testing.assert_allclose(got.rotation.numpy(), np.asarray(ref.rotation), atol=1e-5)
     capped = trot.solve_rotation_gnc_tls(T(src), T(dst), 1e-4, max_iterations=1)
     assert capped.iterations.tolist() == [1, 1]
+
+
+@pytest.mark.parametrize("d", [3, 2])
+def test_solve_gnc_tls_on_the_cpu_is_the_plain_loop(d, rng):
+    """On CPU tensors ``_solve_gnc_tls`` runs kernel R's plain version (the
+    GNC-TLS loop of GNC-TLS at d = 3 and of Quatro at d = 2), bit for bit,
+    launches nothing, and follows JAX's loop."""
+    b, n = 4, 80
+    src, dst, valid, _ = _tim_problem(rng, b, n, 0.3, 0.002)
+    src, dst = np.ascontiguousarray(src[:, :d]), np.ascontiguousarray(dst[:, :d])
+    nb = np.array([0.01, 0.02, 0.0, 0.01], np.float32)  # 0: the 1e-2 fallback
+    t_proc, j_proc = {3: (tproc.svd_rot, jproc.svd_rot), 2: (tproc.svd_rot_2d,
+                                                             jproc.svd_rot_2d)}[d]
+    kw = (1.4, 100, 1e-6)
+    ck.reset_launches()
+    got = trot._solve_gnc_tls(T(src), T(dst), T(nb), *kw, T(valid), t_proc)
+    assert not any(ck.LAUNCHES.values()), ck.LAUNCHES
+    plain = ck.gnc_tls_plain(T(src), T(dst), T(nb), *kw, T(valid), t_proc)
+    assert all(torch.equal(a, p) for a, p in zip(got, plain))
+    ref = jax.vmap(lambda s_, d_, v, e: jrot._solve_gnc_tls(s_, d_, e, *kw, v, j_proc))(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(valid), jnp.asarray(nb))
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+    threshold = 0.5 if d == 3 else 0.4
+    np.testing.assert_array_equal(got[1].numpy() >= threshold, np.asarray(ref[1]) >= threshold)
+    # as test_gnc_tls_rotation_matches_jax: float32 rounding in another order
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), atol=1e-5)
+
+
+GNC_REFUSALS = ["dtype", "d", "dst shape", "valid dtype", "procrustes"]
+
+
+@pytest.mark.parametrize("case", GNC_REFUSALS)
+def test_gnc_tls_refuses_what_kernel_r_does_not_take(case):
+    """The wrapper's checks hold on either device: integer points, a 4-D
+    problem, a ``dst`` of another shape, a ``valid`` mask of bytes, and the
+    3-D Procrustes for a 2-D problem; nothing counted."""
+    pts = torch.ones(2, 3, 10)
+    valid = torch.ones(2, 10, dtype=torch.bool)
+    args = dict(src=pts, dst=pts, valid=valid, procrustes=tproc.svd_rot)
+    args.update({"dtype": dict(src=pts.int(), dst=pts.int()),
+                 "d": dict(src=pts.repeat(1, 2, 1)[:, :4], dst=pts.repeat(1, 2, 1)[:, :4]),
+                 "dst shape": dict(dst=pts[:, :, :9]),
+                 "valid dtype": dict(valid=valid.to(torch.uint8)),
+                 "procrustes": dict(src=pts[:, :2], dst=pts[:, :2])}[case])
+    ck.reset_launches()
+    with pytest.raises((TypeError, ValueError)):
+        ck.gnc_tls(noise_bound=0.01, gnc_factor=1.4, max_iterations=100, cost_threshold=1e-6,
+                   **args)
+    assert not any(ck.LAUNCHES.values()), ck.LAUNCHES
 
 
 def test_translation_tls_matches_jax(rng):
