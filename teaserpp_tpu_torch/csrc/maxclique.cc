@@ -27,6 +27,11 @@ namespace {
 
 using Clock = std::chrono::steady_clock;
 
+// Word operations of coloring (a coloring of P costs |P| x words) after
+// which the search turns to the near-clique search: about a second of one
+// core, more than the search takes on the graphs that it finishes quickly.
+constexpr long long kColoringWork = 1LL << 28;
+
 struct BitRow {
   const uint64_t* p;
   int words;
@@ -78,6 +83,11 @@ struct Searcher {
   Clock::time_point deadline;
   bool timed_out = false;
   long long nodes = 0;
+  // the work the coloring has done, shared by the threads, and where it
+  // stops (0: nowhere): a coloring of P costs |P| x words word operations
+  std::atomic<long long>* work = nullptr;
+  long long work_limit = 0;
+  bool stopped = false;
 
   const uint64_t* row(int v) const { return adj + size_t(v) * words; }
 
@@ -114,9 +124,13 @@ struct Searcher {
   }
 
   void expand(std::vector<uint64_t>& P) {
-    if (check_time()) return;
+    if (check_time() || stopped) return;
     std::vector<int> order, colors;
     color_sort(P, order, colors);
+    if (work_limit && work->fetch_add(static_cast<long long>(order.size()) * words) > work_limit) {
+      stopped = true;
+      return;
+    }
     for (int k = int(order.size()) - 1; k >= 0; --k) {
       if (int(cur.size()) + colors[k] <= best_size()) return;
       int v = order[k];
@@ -130,45 +144,63 @@ struct Searcher {
         inc->offer(cur);
       }
       cur.pop_back();
-      if (timed_out) return;
+      if (timed_out || stopped) return;
       P[v >> 6] &= ~(1ULL << (v & 63));
     }
   }
 };
 
-// Core numbers by repeated min-degree peeling (O(n^2) with bitset degrees).
+// Core numbers by repeated min-degree peeling: the vertex of least degree,
+// ties to the lowest id. Each degree keeps a bitset of its live vertices, so
+// a pick reads one bucket's words and a removal moves each live neighbour
+// one bucket down: O(n words + E).
 void compute_cores(const uint64_t* adj, int n, int words, std::vector<int>& core,
                    std::vector<int>& degeneracy_order) {
   std::vector<int> deg(n);
-  std::vector<char> removed(n, 0);
-  std::vector<std::vector<uint64_t>> live(n, std::vector<uint64_t>(words));
+  int max_deg = 0;
   for (int v = 0; v < n; ++v) {
-    std::memcpy(live[v].data(), adj + size_t(v) * words, size_t(words) * 8);
-    deg[v] = popcount_words(live[v].data(), words);
+    deg[v] = popcount_words(adj + size_t(v) * words, words);
+    max_deg = std::max(max_deg, deg[v]);
+  }
+  std::vector<uint64_t> bucket(size_t(max_deg + 1) * words, 0), live(words, 0);
+  std::vector<int> in_bucket(max_deg + 1, 0);
+  auto move = [&](int v, int from, int to) {
+    if (from >= 0) {
+      bucket[size_t(from) * words + (v >> 6)] &= ~(1ULL << (v & 63));
+      --in_bucket[from];
+    }
+    bucket[size_t(to) * words + (v >> 6)] |= 1ULL << (v & 63);
+    ++in_bucket[to];
+  };
+  for (int v = 0; v < n; ++v) {
+    move(v, -1, deg[v]);
+    live[v >> 6] |= 1ULL << (v & 63);
   }
   core.assign(n, 0);
   degeneracy_order.clear();
   degeneracy_order.reserve(n);
-  int k = 0;
+  int k = 0, d = 0;
   for (int it = 0; it < n; ++it) {
-    int v = -1, dmin = n + 1;
-    for (int u = 0; u < n; ++u)
-      if (!removed[u] && deg[u] < dmin) {
-        dmin = deg[u];
-        v = u;
-      }
-    if (v < 0) break;
-    k = std::max(k, dmin);
+    while (in_bucket[d] == 0) ++d;
+    const uint64_t* b = bucket.data() + size_t(d) * words;
+    int w = 0;
+    while (!b[w]) ++w;
+    int v = w * 64 + __builtin_ctzll(b[w]);
+    k = std::max(k, d);
     core[v] = k;
-    removed[v] = 1;
+    bucket[size_t(d) * words + (v >> 6)] &= ~(1ULL << (v & 63));
+    --in_bucket[d];
+    live[v >> 6] &= ~(1ULL << (v & 63));
     degeneracy_order.push_back(v);
-    // drop v from neighbors
-    for (int u = 0; u < n; ++u) {
-      if (!removed[u] && ((live[u][v >> 6] >> (v & 63)) & 1ULL)) {
-        live[u][v >> 6] &= ~(1ULL << (v & 63));
+    // each live neighbour's degree drops by one, and the least degree with it
+    const uint64_t* rv = adj + size_t(v) * words;
+    for (int x = 0; x < words; ++x)
+      for (uint64_t y = rv[x] & live[x]; y; y &= y - 1) {
+        int u = x * 64 + __builtin_ctzll(y);
+        move(u, deg[u], deg[u] - 1);
         --deg[u];
       }
-    }
+    d = std::max(0, d - 1);
   }
 }
 
@@ -264,6 +296,224 @@ void compute_cores_csr(const int64_t* rowptr, const int32_t* col, int n,
       }
     }
   }
+}
+
+// A clique peeled from the top k-core: drop the vertex that misses the most
+// edges to the rest (ties to the lowest id) until none misses one. On a graph
+// whose top core is a clique of inliers with a few near-inliers, it is the
+// maximum clique or close to it, a far better bound than greedy_clique's.
+std::vector<int> peel_top_core(const uint64_t* adj, int n, int words,
+                               const std::vector<int>& core, int max_core) {
+  std::vector<int> top;
+  for (int v = 0; v < n; ++v)
+    if (core[v] == max_core) top.push_back(v);
+  std::vector<uint64_t> alive(words, 0);
+  for (int v : top) alive[v >> 6] |= 1ULL << (v & 63);
+  std::vector<int> miss(top.size());
+  int m = int(top.size());
+  for (int i = 0; i < m; ++i) {
+    int v = top[i];
+    const uint64_t* rv = adj + size_t(v) * words;
+    int deg = -int((rv[v >> 6] >> (v & 63)) & 1ULL);  // a loop is no edge
+    for (int w = 0; w < words; ++w) deg += __builtin_popcountll(alive[w] & rv[w]);
+    miss[i] = m - 1 - deg;
+  }
+  std::vector<char> gone(m, 0);
+  while (true) {
+    int j = -1;
+    for (int i = 0; i < m; ++i)
+      if (!gone[i] && miss[i] > 0 && (j < 0 || miss[i] > miss[j])) j = i;
+    if (j < 0) break;
+    gone[j] = 1;
+    int v = top[j];
+    alive[v >> 6] &= ~(1ULL << (v & 63));
+    const uint64_t* rv = adj + size_t(v) * words;
+    for (int i = 0; i < m; ++i)
+      if (!gone[i] && top[i] != v && !((rv[top[i] >> 6] >> (top[i] & 63)) & 1ULL)) --miss[i];
+  }
+  std::vector<int> clique;
+  for (int i = 0; i < m; ++i)
+    if (!gone[i]) clique.push_back(top[i]);
+  return clique;
+}
+
+// Exact maximum independent set of a sparse graph on bitsets: vertices of
+// degree 0 or 1 are taken (some maximum set holds them), components are
+// solved apart, and the rest branches on a vertex of the largest degree
+// (taken, then left out where the bound of a greedy matching allows a
+// larger set). Ties go to the lowest id. ``over`` is set past max_nodes
+// or the deadline.
+struct IndependentSet {
+  int cw = 0;
+  std::vector<std::vector<uint64_t>> nb;
+  long long nodes = 0, max_nodes = 0;
+  Clock::time_point deadline;
+  bool over = false;
+
+  static int count(const std::vector<uint64_t>& a) {
+    int c = 0;
+    for (uint64_t w : a) c += __builtin_popcountll(w);
+    return c;
+  }
+  int degree(int v, const std::vector<uint64_t>& vs) const {
+    int c = 0;
+    for (int w = 0; w < cw; ++w) c += __builtin_popcountll(nb[v][w] & vs[w]);
+    return c;
+  }
+  static void clear(std::vector<uint64_t>& a, int v) { a[v >> 6] &= ~(1ULL << (v & 63)); }
+
+  std::vector<uint64_t> component(const std::vector<uint64_t>& vs) const {
+    std::vector<uint64_t> comp(cw, 0);
+    int s = first_bit(vs);
+    comp[s >> 6] |= 1ULL << (s & 63);
+    std::vector<uint64_t> front = comp;
+    while (any_bit(front)) {
+      std::vector<uint64_t> next(cw, 0);
+      for (int w = 0; w < cw; ++w) {
+        uint64_t f = front[w];
+        while (f) {
+          int v = w * 64 + __builtin_ctzll(f);
+          f &= f - 1;
+          for (int x = 0; x < cw; ++x) next[x] |= nb[v][x];
+        }
+      }
+      for (int w = 0; w < cw; ++w) {
+        next[w] &= vs[w] & ~comp[w];
+        comp[w] |= next[w];
+      }
+      front = next;
+    }
+    return comp;
+  }
+
+  int bound(std::vector<uint64_t> vs) const {  // |vs| minus a greedy matching
+    int size = count(vs), matched = 0;
+    for (int v = first_bit(vs); v >= 0; v = first_bit(vs)) {
+      clear(vs, v);
+      for (int w = 0; w < cw; ++w) {
+        uint64_t x = nb[v][w] & vs[w];
+        if (x) {
+          clear(vs, w * 64 + __builtin_ctzll(x));
+          ++matched;
+          break;
+        }
+      }
+    }
+    return size - matched;
+  }
+
+  std::vector<int> solve(std::vector<uint64_t> vs) {
+    std::vector<int> taken;
+    if (++nodes > max_nodes || ((nodes & 0xFF) == 0 && Clock::now() > deadline)) over = true;
+    if (over) return taken;
+    for (bool changed = true; changed;) {
+      changed = false;
+      for (int w = 0; w < cw; ++w) {
+        uint64_t f = vs[w];
+        while (f) {
+          int v = w * 64 + __builtin_ctzll(f);
+          f &= f - 1;
+          if (!((vs[w] >> (v & 63)) & 1ULL) || degree(v, vs) > 1) continue;
+          taken.push_back(v);
+          for (int x = 0; x < cw; ++x) vs[x] &= ~nb[v][x];
+          clear(vs, v);
+          f &= vs[w];
+          changed = true;
+        }
+      }
+    }
+    if (!any_bit(vs)) return taken;
+    std::vector<uint64_t> comp = component(vs);
+    if (comp != vs) {
+      for (int w = 0; w < cw; ++w) vs[w] &= ~comp[w];
+      std::vector<int> a = solve(comp), b = solve(vs);
+      taken.insert(taken.end(), a.begin(), a.end());
+      taken.insert(taken.end(), b.begin(), b.end());
+      return taken;
+    }
+    int top = -1, dtop = -1;
+    for (int w0 = 0; w0 < cw; ++w0) {
+      for (uint64_t f = vs[w0]; f; f &= f - 1) {
+        int u = w0 * 64 + __builtin_ctzll(f);
+        int d = degree(u, vs);
+        if (d > dtop) {
+          dtop = d;
+          top = u;
+        }
+      }
+    }
+    std::vector<uint64_t> with = vs;
+    for (int x = 0; x < cw; ++x) with[x] &= ~nb[top][x];
+    clear(with, top);
+    std::vector<int> best = solve(with);
+    best.push_back(top);
+    std::vector<uint64_t> without = vs;
+    clear(without, top);
+    if (bound(without) > int(best.size())) {
+      std::vector<int> other = solve(without);
+      if (other.size() > best.size()) best = other;
+    }
+    taken.insert(taken.end(), best.begin(), best.end());
+    return taken;
+  }
+};
+
+// The exact search where the graph is a near-clique. Every clique larger
+// than the incumbent's L vertices lies in the L-core C; the largest clique
+// of C is C less a least cover of the edges it misses, i.e. the vertices of
+// C that miss none and a maximum independent set of the conflict graph of
+// the misses. Returns false, leaving the incumbent, where that graph is not
+// sparse (more than 8 misses a conflicted vertex on average: the coloring
+// search is the better tool there) or the set search passes its budget.
+bool near_clique_search(const uint64_t* adj, int n, int words, const std::vector<int>& core,
+                        Clock::time_point deadline, Incumbent& inc) {
+  const int L = inc.size.load();
+  std::vector<uint64_t> in_c(words, 0);
+  std::vector<int> members;
+  for (int v = 0; v < n; ++v)
+    if (core[v] >= L) {
+      in_c[v >> 6] |= 1ULL << (v & 63);
+      members.push_back(v);
+    }
+  std::vector<int> conflicted, local(n, -1);
+  long long misses = 0;
+  for (int v : members) {
+    const uint64_t* rv = adj + size_t(v) * words;
+    int deg = -int((rv[v >> 6] >> (v & 63)) & 1ULL);  // a loop is no edge
+    for (int w = 0; w < words; ++w) deg += __builtin_popcountll(in_c[w] & rv[w]);
+    int miss = int(members.size()) - 1 - deg;
+    if (miss > 0) {
+      local[v] = int(conflicted.size());
+      conflicted.push_back(v);
+      misses += miss;
+    }
+  }
+  const int c = int(conflicted.size());
+  if (misses / 2 > 8LL * c) return false;
+  IndependentSet mis;
+  mis.cw = (c + 63) / 64;
+  mis.max_nodes = 1000000;
+  mis.deadline = deadline;
+  mis.nb.assign(c, std::vector<uint64_t>(mis.cw, 0));
+  for (int i = 0; i < c; ++i) {
+    const uint64_t* rv = adj + size_t(conflicted[i]) * words;
+    for (int j = 0; j < c; ++j) {
+      int u = conflicted[j];
+      if (j != i && !((rv[u >> 6] >> (u & 63)) & 1ULL))
+        mis.nb[i][j >> 6] |= 1ULL << (j & 63);
+    }
+  }
+  std::vector<uint64_t> all(mis.cw, 0);
+  for (int i = 0; i < c; ++i) all[i >> 6] |= 1ULL << (i & 63);
+  std::vector<int> keep = c ? mis.solve(all) : std::vector<int>();
+  if (mis.over) return false;
+  std::vector<char> in_set(c, 0);
+  for (int i : keep) in_set[i] = 1;
+  std::vector<int> clique;
+  for (int v : members)
+    if (local[v] < 0 || in_set[local[v]]) clique.push_back(v);
+  inc.offer(clique);
+  return true;
 }
 
 }  // namespace
@@ -403,17 +653,20 @@ int tpureg_max_clique_mt(const uint64_t* adj_bits, int32_t n, int32_t words,
   inc.offer(greedy_clique(adj_bits, n, words, core));
 
   std::atomic<int> timed_out{0};
-  if (inc.size.load() < max_core + 1) {
-    // Root expansion in reverse degeneracy order: P(v) = later-ordered
-    // neighbors of v (each clique gets a unique root); roots whose core
-    // bound cannot beat the incumbent are pruned. Threads pull roots from
-    // a shared atomic counter and share the incumbent bound (the same
-    // scheme PMC uses across its OpenMP threads, graph.cc:38).
-    std::vector<int> pos(n);
-    for (int i = 0; i < n; ++i) pos[order[i]] = i;
+  // Root expansion in reverse degeneracy order: P(v) = later-ordered
+  // neighbors of v (each clique gets a unique root); roots whose core
+  // bound cannot beat the incumbent are pruned. Threads pull roots from
+  // a shared atomic counter and share the incumbent bound (the same
+  // scheme PMC uses across its OpenMP threads, graph.cc:38). Returns
+  // whether the search ran to its end (not stopped by ``work_limit``).
+  std::vector<int> pos(n);
+  for (int i = 0; i < n; ++i) pos[order[i]] = i;
+  auto search = [&](long long work_limit) {
     int nt = std::max(1, int(num_threads));
     nt = std::min<int>(nt, std::max(1u, std::thread::hardware_concurrency()));
     std::atomic<int> next_root{n - 1};
+    std::atomic<long long> work{0};
+    std::atomic<int> stopped{0};
 
     auto worker = [&]() {
       Searcher s;
@@ -422,9 +675,11 @@ int tpureg_max_clique_mt(const uint64_t* adj_bits, int32_t n, int32_t words,
       s.adj = adj_bits;
       s.inc = &inc;
       s.deadline = deadline;
+      s.work = &work;
+      s.work_limit = work_limit;
       while (true) {
         int i = next_root.fetch_sub(1, std::memory_order_relaxed);
-        if (i < 0 || s.timed_out) break;
+        if (i < 0 || s.timed_out || s.stopped || stopped.load()) break;
         int v = order[i];
         if (core[v] + 1 <= s.best_size()) continue;
         std::vector<uint64_t> P(words, 0);
@@ -439,6 +694,7 @@ int tpureg_max_clique_mt(const uint64_t* adj_bits, int32_t n, int32_t words,
         s.cur.clear();
       }
       if (s.timed_out) timed_out.store(1, std::memory_order_relaxed);
+      if (s.stopped) stopped.store(1);
     };
 
     if (nt <= 1) {
@@ -448,6 +704,17 @@ int tpureg_max_clique_mt(const uint64_t* adj_bits, int32_t n, int32_t words,
       for (int t = 0; t < nt; ++t) threads.emplace_back(worker);
       for (auto& th : threads) th.join();
     }
+    return stopped.load() == 0;
+  };
+
+  // The coloring search, as PMC runs it, up to kColoringWork; past it (a
+  // near-clique of thousands of vertices, where it could run for minutes)
+  // a clique peeled from the top core and the near-clique search finish
+  // the job exactly, or else the coloring search runs again to its end.
+  if (inc.size.load() < max_core + 1 && !search(kColoringWork)) {
+    inc.offer(peel_top_core(adj_bits, n, words, core, max_core));
+    if (inc.size.load() < max_core + 1 && !near_clique_search(adj_bits, n, words, core, deadline, inc))
+      search(0);
   }
 
   std::lock_guard<std::mutex> lock(inc.mu);

@@ -27,7 +27,16 @@ Where the two packages can part:
   order differs;
 * cross products are ``jnp.cross``'s formula written per component on the
   planes; ``atan2``, ``floor`` and ``clip`` run in JAX's order
-  (JAX fpfh.py:70-88).
+  (JAX fpfh.py:70-88);
+* a normal of fewer than three neighbours is undefined (``NormalsResult.
+  valid`` false): its covariance has a double zero eigenvalue, and any vector
+  of that plane is the eigensolver's pick. :class:`FPFHEstimation` keeps
+  every SPFH pair with an undefined normal at either end out of the
+  histogram (the pair still counts in ``k``), so the descriptors do not
+  depend on the solver's pick. PCL makes such a normal NaN, and its pairs'
+  NaN features fall in bin 0 through the float-to-int conversion of x86; the
+  JAX package bins the solver's vector. The two packages differ at such
+  points and their neighbours.
 """
 
 from __future__ import annotations
@@ -45,16 +54,19 @@ from teaserpp_tpu_torch.features.normals import (
     _r2_grid,
     _require_tensor,
     check_plan_radius,
+    count_pass,
     estimate_normals,
     estimate_normals_pruned,
     gather_slots,
     mesh_steps,
     pair_diffs,
     query_rows,
+    real_slots,
     sorted_on_device,
 )
 from teaserpp_tpu_torch.features.spatial import SENTINEL, NeighborPlan, build_neighbor_plans
 from teaserpp_tpu_torch.parallel.multihost import require_mesh
+from teaserpp_tpu_torch.utils.timing import StageTimer
 
 _NR_BINS = 11
 
@@ -127,22 +139,27 @@ def _pair_features_block(q_pts, q_nrm, c_pts, c_nrm, mask):
     return ok, b1, b2, b3
 
 
-def _spfh_core(q_pts, q_nrm, q_valid, c_pts, c_nrm, r2):
-    """(S*B, 33) SPFH histograms of query rows against their candidates.
+def _spfh_core(q_pts, q_nrm, q_valid, c_pts, c_nrm, r2, c_defined=None):
+    """(S*B, 33) SPFH histograms of query rows against their candidates,
+    and (S*B,) each row's count of candidates within the radius, self
+    included.
 
-    ``q_valid`` (S, B) weights each query row (0 zeroes its histogram)."""
+    ``q_valid`` (S, B) weights each query row (0 zeroes its histogram);
+    ``c_defined`` (S, M) bool, where given, keeps the pairs of a candidate
+    whose normal is undefined out of the histogram."""
     dtype = q_pts.dtype
     d2 = pair_diffs(q_pts, c_pts)[3]
     mask = d2 <= r2  # includes self (dist 0)
     del d2
-    ok, b1, b2, b3 = _pair_features_block(q_pts, q_nrm, c_pts, c_nrm, mask)
+    pairs = mask if c_defined is None else mask & c_defined[:, None, :]
+    ok, b1, b2, b3 = _pair_features_block(q_pts, q_nrm, c_pts, c_nrm, pairs)
     okf = (ok.to(dtype) * q_valid[..., None]).reshape(-1, ok.shape[-1])
     cnt = mask.sum(-1).to(dtype).reshape(-1)
     incr = 100.0 / torch.clamp(cnt - 1.0, min=1.0)
     counts = torch.zeros((okf.shape[0], 3 * _NR_BINS), dtype=dtype, device=q_pts.device)
     for k, b in enumerate((b1, b2, b3)):
         counts.scatter_add_(1, b.reshape(okf.shape) + k * _NR_BINS, okf)
-    return counts * incr[:, None]
+    return counts * incr[:, None], cnt
 
 
 def _fpfh_core(q_pts, c_pts, c_spfh, r2):
@@ -167,9 +184,14 @@ def compute_fpfh(
     radius: float,
     valid: Optional[torch.Tensor] = None,
     chunk_size: int = 1024,
+    defined: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(N, 33) FPFH descriptors from points and normals, chunked over query
-    rows against the whole cloud, on the points' device and dtype."""
+    rows against the whole cloud, on the points' device and dtype.
+
+    ``defined`` (N,) bool, where given, marks the normals that are defined
+    (``NormalsResult.valid``): an SPFH pair with an undefined normal at
+    either end adds nothing (see the module docstring)."""
     pts = _require_tensor("pts", pts)
     normals = _require_tensor("normals", normals).to(pts.dtype)
     n = pts.shape[0]
@@ -177,32 +199,45 @@ def compute_fpfh(
     b = max(min(chunk_size, n), 1)
     ones = (torch.ones((n,), dtype=dtype, device=pts.device) if valid is None
             else valid.to(dtype))
+    weight = ones if defined is None else ones * defined.to(dtype)
     r2 = _r2_dense(radius, dtype, pts.device)
-    spfh = torch.cat([
-        _spfh_core(pts[None, s:s + b], normals[None, s:s + b], ones[None, s:s + b],
-                   pts[None], normals[None], r2)
+    spfh, cnt = zip(*(
+        _spfh_core(pts[None, s:s + b], normals[None, s:s + b], weight[None, s:s + b],
+                   pts[None], normals[None], r2, None if defined is None else defined[None])
         for s in range(0, n, b)
-    ])
+    ))
+    spfh = torch.cat(spfh)
+    cnt = torch.cat(cnt)
+    count_pass("fpfh", n * n, cnt if valid is None else cnt[valid.to(torch.bool)])
     return torch.cat([
         _fpfh_core(pts[None, s:s + b], pts[None], spfh[None], r2) for s in range(0, n, b)
     ])
 
 
-def _spfh_sorted(sp, sn, rows, ci, r2, steps) -> torch.Tensor:
+def _spfh_sorted(sp, sn, rows, ci, r2, steps, sd=None) -> torch.Tensor:
     """(slots, 33) SPFH of the query slots of the plan's blocks in
     ``steps``, in sorted order: ``sp``/``sn`` sorted points and normals with
-    their fill row, ``rows`` :func:`query_rows`, ``ci`` the candidate lists."""
-    ones = torch.ones(rows.shape, dtype=sp.dtype, device=sp.device)
-    return torch.cat([sp.new_empty((0, 3 * _NR_BINS))] + [
-        _spfh_core(sp[rows[s.start:s.stop]], sn[rows[s.start:s.stop]], ones[s.start:s.stop],
-                   sp[ci[s.start:s.stop]], sn[ci[s.start:s.stop]], r2)
+    their fill row, ``rows`` :func:`query_rows`, ``ci`` the candidate lists,
+    ``sd`` (where given) the sorted bool flags of the defined normals."""
+    if sd is None:
+        weight = torch.ones(rows.shape, dtype=sp.dtype, device=sp.device)
+    else:
+        weight = sd[rows].to(sp.dtype)
+    out = [(sp.new_empty((0, 3 * _NR_BINS)), sp.new_empty((0,)))] + [
+        _spfh_core(sp[rows[s.start:s.stop]], sn[rows[s.start:s.stop]], weight[s.start:s.stop],
+                   sp[ci[s.start:s.stop]], sn[ci[s.start:s.stop]], r2,
+                   None if sd is None else sd[ci[s.start:s.stop]])
         for s in steps
-    ])
+    ]
+    cnt = torch.cat([c for _, c in out])
+    real = real_slots(rows, steps, sp.shape[0] - 1)
+    count_pass("fpfh", real.numel() * ci.shape[1], cnt[real])
+    return torch.cat([h for h, _ in out])
 
 
 def compute_fpfh_pruned(
     pts, normals, radius: float, plan: NeighborPlan, mesh=None,
-    device: DeviceLike = None,
+    device: DeviceLike = None, defined=None,
 ) -> torch.Tensor:
     """(N, 33) FPFH through a grid-hash :class:`~teaserpp_tpu_torch.features.
     spatial.NeighborPlan`: :func:`compute_fpfh`'s neighbour semantics (the
@@ -215,7 +250,8 @@ def compute_fpfh_pruned(
     ``Mesh``) SPFH and FPFH are sharded over its first axis, as the normals
     of :func:`~teaserpp_tpu_torch.features.normals.estimate_normals_pruned`
     are, the SPFH table gathered between the two passes; every rank of the
-    axis returns the whole result."""
+    axis returns the whole result. ``defined`` as :func:`compute_fpfh`'s,
+    a tensor or host array."""
     check_plan_radius(radius, plan)
     steps, sizes = mesh_steps(plan, mesh)
     dev = resolve_device(device)
@@ -223,11 +259,12 @@ def compute_fpfh_pruned(
     dtype = _floating(torch.as_tensor(pts_np[:0]).dtype)
     sp = sorted_on_device(pts_np, plan, SENTINEL, dev, dtype)
     sn = sorted_on_device(normals, plan, 0.0, dev, dtype)
+    sd = None if defined is None else sorted_on_device(defined, plan, False, dev, torch.bool)
     rows = query_rows(plan, dev)
     ci = torch.as_tensor(plan.cand_idx, device=dev).long()
     r2 = _r2_grid(radius, dtype, dev)
     # the sorted SPFH table with a zero row for the padding candidates
-    spfh = gather_slots(mesh, sizes, _spfh_sorted(sp, sn, rows, ci, r2, steps))[: plan.n]
+    spfh = gather_slots(mesh, sizes, _spfh_sorted(sp, sn, rows, ci, r2, steps, sd))[: plan.n]
     spfh_sorted = torch.cat([spfh, spfh.new_zeros((1, 3 * _NR_BINS))])
     del spfh
     fpfh = torch.cat([sp.new_empty((0, 3 * _NR_BINS))] + [
@@ -256,7 +293,9 @@ class FPFHEstimation:
     package computes on a TPU (float64 to compare with JAX under x64).
     ``mesh`` (a port ``Mesh``, ``parallel/multihost.py``) shards the grid
     path's query blocks over the mesh's first axis; the dense path ignores
-    it, as in JAX. Inputs and results are numpy.
+    it, as in JAX. Inputs and results are numpy. A normal of fewer than
+    three neighbours is undefined, and the SPFH pairs that hold one add
+    nothing (see the module docstring).
     """
 
     def __init__(self, chunk_size: int = 1024, neighbor_mode: str = "auto",
@@ -269,6 +308,7 @@ class FPFHEstimation:
         self._normals = np.zeros((0, 3))
         self._chunk_size = chunk_size
         self._neighbor_mode = neighbor_mode
+        self._timer = StageTimer()
 
     def computeFPFHFeatures(
         self,
@@ -279,47 +319,61 @@ class FPFHEstimation:
         """(N, 33) float descriptors of ``input_cloud`` (PointCloud or (N,3))."""
         pts = np.asarray(getattr(input_cloud, "points", input_cloud), dtype=np.float64)
         n = len(pts)
+        self._timer = timer = StageTimer()
 
-        plans = None
-        # auto also requires a sane radius ratio: the plan grid's cell is the
-        # SMALLER radius, so a large ratio blows up the neighbour-cell count
-        # cubically (build_neighbor_plans raises past reach 7; auto falls
-        # back to dense)
-        ratio_ok = (
-            min(normal_search_radius, fpfh_search_radius) > 0
-            and max(normal_search_radius, fpfh_search_radius)
-            / min(normal_search_radius, fpfh_search_radius)
-            <= 7
-        )
-        if self._neighbor_mode == "grid" or (
-            self._neighbor_mode == "auto" and n >= 8192 and ratio_ok
-        ):
-            plans = build_neighbor_plans(pts, (normal_search_radius, fpfh_search_radius))
-            if self._neighbor_mode == "auto" and not all(
-                p.pair_fraction < 0.7 for p in plans
+        with timer.stage("plans", sync=self.device):
+            plans = None
+            # auto also requires a sane radius ratio: the plan grid's cell is
+            # the SMALLER radius, so a large ratio blows up the neighbour-cell
+            # count cubically (build_neighbor_plans raises past reach 7; auto
+            # falls back to dense)
+            ratio_ok = (
+                min(normal_search_radius, fpfh_search_radius) > 0
+                and max(normal_search_radius, fpfh_search_radius)
+                / min(normal_search_radius, fpfh_search_radius)
+                <= 7
+            )
+            if self._neighbor_mode == "grid" or (
+                self._neighbor_mode == "auto" and n >= 8192 and ratio_ok
             ):
-                plans = None  # pruning would not pay for its gathers
+                plans = build_neighbor_plans(pts, (normal_search_radius, fpfh_search_radius))
+                if self._neighbor_mode == "auto" and not all(
+                    p.pair_fraction < 0.7 for p in plans
+                ):
+                    plans = None  # pruning would not pay for its gathers
 
         if plans is not None:
             # host points: both pruned passes sort on the host, so no device
             # copy of the cloud is made on this branch
             host = pts.astype(torch.empty((), dtype=self.dtype).numpy().dtype)
-            nres = estimate_normals_pruned(host, normal_search_radius, plans[0],
-                                           mesh=self._mesh, device=self.device)
-            self._normals = nres.normals.cpu().numpy()
-            desc = compute_fpfh_pruned(host, nres.normals, fpfh_search_radius, plans[1],
-                                       mesh=self._mesh, device=self.device)
-            return desc.cpu().numpy()
+            with timer.stage("normals", sync=self.device):
+                nres = estimate_normals_pruned(host, normal_search_radius, plans[0],
+                                               mesh=self._mesh, device=self.device)
+                self._normals = nres.normals.cpu().numpy()
+            with timer.stage("fpfh", sync=self.device):
+                desc = compute_fpfh_pruned(host, nres.normals, fpfh_search_radius, plans[1],
+                                           mesh=self._mesh, device=self.device,
+                                           defined=nres.valid)
+                return desc.cpu().numpy()
 
-        pts_d = torch.as_tensor(pts, device=self.device).to(self.dtype)
-        nres = estimate_normals(pts_d, normal_search_radius, chunk_size=self._chunk_size)
-        self._normals = nres.normals.cpu().numpy()
-        desc = compute_fpfh(pts_d, nres.normals, fpfh_search_radius,
-                            chunk_size=self._chunk_size)
-        return desc.cpu().numpy()
+        with timer.stage("normals", sync=self.device):
+            pts_d = torch.as_tensor(pts, device=self.device).to(self.dtype)
+            nres = estimate_normals(pts_d, normal_search_radius, chunk_size=self._chunk_size)
+            self._normals = nres.normals.cpu().numpy()
+        with timer.stage("fpfh", sync=self.device):
+            desc = compute_fpfh(pts_d, nres.normals, fpfh_search_radius,
+                                chunk_size=self._chunk_size, defined=nres.valid)
+            return desc.cpu().numpy()
 
     def getNormals(self) -> np.ndarray:
         return self._normals
+
+    def getStageTimings(self) -> dict:
+        """Wall-clock seconds per stage of the last ``computeFPFHFeatures``
+        (``plans``: the route chosen and, on the grid route, its neighbour
+        plans built on the host; ``normals``; ``fpfh``), each ending in a
+        device sync."""
+        return self._timer.as_dict()
 
 
 def compute_fpfh_features(

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 
 from teaserpp_tpu_torch.device import DeviceLike, resolve_device
+from teaserpp_tpu_torch.features.spatial import FRONTEND
+from teaserpp_tpu_torch.utils.timing import StageTimer
 
 _LANE = 128  # database rows per block of the hierarchical candidate search
 
@@ -141,6 +143,13 @@ class Matcher:
 
     def __init__(self, device: DeviceLike = None):
         self.device = resolve_device(device)
+        self._timer = StageTimer()
+
+    def getStageTimings(self) -> dict:
+        """Wall-clock seconds of the last ``calculateCorrespondences``
+        (``match``: the nearest neighbours both ways and the host filters),
+        ending in a device sync."""
+        return self._timer.as_dict()
 
     def _features(self, f) -> torch.Tensor:
         # float32 on both sides, as in JAX (matcher.py:192-195, 215-216): a
@@ -167,6 +176,16 @@ class Matcher:
         with time(NULL) (matcher.cc:225) — a fixed seed by default for
         reproducibility, None for entropy.
         """
+        self._timer = StageTimer()
+        with self._timer.stage("match", sync=self.device):
+            corres = self._match(source_points, target_points, source_features,
+                                 target_features, use_absolute_scale, use_crosscheck,
+                                 use_tuple_test, tuple_scale, seed)
+        FRONTEND["correspondences"] += len(corres)
+        return corres
+
+    def _match(self, source_points, target_points, source_features, target_features,
+               use_absolute_scale, use_crosscheck, use_tuple_test, tuple_scale, seed):
         src_pts = np.asarray(
             getattr(source_points, "points", source_points), dtype=np.float64
         )
@@ -202,6 +221,7 @@ class Matcher:
         # NN of each j-feature among i-features, and vice versa
         nn_i_of_j = _nn_indices(feat_j, feat_i).cpu().numpy()  # (n_j,)
         nn_j_of_i = _nn_indices(feat_i, feat_j).cpu().numpy()  # (n_i,)
+        FRONTEND["match_rows"] += len(nn_i_of_j) + len(nn_j_of_i)
 
         # initial matching (matcher.cc:151-175), vectorized
         i_to_j = np.full(n_i, -1, np.int64)

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from teaserpp_tpu_torch.device import DeviceLike, resolve_device
-from teaserpp_tpu_torch.features.spatial import SENTINEL, NeighborPlan, sorted_padded
+from teaserpp_tpu_torch.features.spatial import FRONTEND, SENTINEL, NeighborPlan, sorted_padded
 from teaserpp_tpu_torch.ops.procrustes import jacobi_eigh_small
 from teaserpp_tpu_torch.parallel.multihost import Mesh, require_mesh
 
@@ -199,10 +199,27 @@ def estimate_normals(
         cov, cnt = _moments(pts_eff[None, s:s + b], pts_eff[None], r2)
         covs.append(cov)
         cnts.append(cnt)
-    res = _normals_from_cov(torch.cat(covs), torch.cat(cnts), pts_eff, vp)
+    cnt = torch.cat(cnts)
+    count_pass("normals", n * n, cnt if valid is None else cnt[valid])
+    res = _normals_from_cov(torch.cat(covs), cnt, pts_eff, vp)
     if valid is not None:
         res = res._replace(valid=res.valid & valid)
     return res
+
+
+def count_pass(name: str, candidates: int, counts: torch.Tensor) -> None:
+    """Add a pass's tested pairs and its pairs within the radius (the sum
+    of ``counts``, one per real query row) to ``spatial.FRONTEND``."""
+    FRONTEND[f"{name}_candidates"] += int(candidates)
+    FRONTEND[f"{name}_neighbors"] += int(counts.to(torch.int64).sum())
+
+
+def real_slots(rows: torch.Tensor, steps, n: int) -> torch.Tensor:
+    """Which query slots of ``steps`` (:func:`query_rows` ``rows``) hold
+    one of the ``n`` points, not the tail block's padding."""
+    if not steps:
+        return rows.new_zeros((0,), dtype=torch.bool)
+    return rows[steps[0].start:steps[-1].stop].reshape(-1) < n
 
 
 def _floating(dtype: torch.dtype) -> torch.dtype:
@@ -320,6 +337,9 @@ def estimate_normals_pruned(
         cnts.append(cnt)
     vp = torch.tensor(tuple(viewpoint), dtype=dtype, device=dev)
     mine = slice(steps[0].start, steps[-1].stop) if steps else slice(0, 0)
-    res = _normals_from_cov(torch.cat(covs), torch.cat(cnts), sp[rows[mine].reshape(-1)], vp)
+    cnt = torch.cat(cnts)
+    real = real_slots(rows, steps, plan.n)
+    count_pass("normals", real.numel() * ci.shape[1], cnt[real])
+    res = _normals_from_cov(torch.cat(covs), cnt, sp[rows[mine].reshape(-1)], vp)
     inv = torch.as_tensor(plan.inv, device=dev)
     return NormalsResult(*(gather_slots(mesh, sizes, a)[: plan.n][inv] for a in res))

@@ -41,6 +41,20 @@ from typing import List, NamedTuple, Sequence
 
 import numpy as np
 
+# The front end's work, counted where it is done (as ``ops.cuda_kernels.
+# LAUNCHES`` counts launches): of each pass, the (query, candidate) pairs it
+# tests (the plan's padded candidate lists, or N^2 on the dense route) and
+# the ordered pairs within its radius, self included, whatever implements
+# it; of the matcher, the correspondences it returns and the query rows of
+# feature distances it computes (both directions).
+FRONTEND = {"normals_candidates": 0, "normals_neighbors": 0, "fpfh_candidates": 0,
+            "fpfh_neighbors": 0, "correspondences": 0, "match_rows": 0}
+
+
+def reset_frontend() -> None:
+    for k in FRONTEND:
+        FRONTEND[k] = 0
+
 
 class NeighborPlan(NamedTuple):
     """Host-built candidate plan for one search radius.

@@ -2,8 +2,8 @@
 scripts/bench_frontend_e2e.py's synth100k pair (100,000 points uniform in
 [-1, 1]^3 and a rigid copy with noise 0.003; radii 0.05 and 0.10) through
 plans, normals, FPFH, the matcher with cross-check and
-``solve_large_sharded``, against the planted transform and the JAX
-package's counts; the matcher against a plain exact nearest neighbour, the
+``solve_large_sharded``, and through the facade with the exact clique,
+against the planted transform and the JAX package's counts; the matcher against a plain exact nearest neighbour, the
 grid passes and the matcher against the CPU; examples/fpfh_icp_registration.py's
 flow (``FPFHEstimation``, ``Matcher``, ``RobustRegistrationSolver``, ICP) on
 a wavy patch; and ``python -m teaserpp_tpu_torch.cli``.
@@ -103,6 +103,41 @@ def test_synth100k_registration(synth100k):
     dense = len(corr) <= DENSE_N  # solve_large_sharded's blocked_threshold
     assert launches == launched(trim_bits=0 if dense else 1, greedy_clique=1, gnc_tls=1), \
         len(corr)
+
+
+def test_synth100k_through_the_facade_with_the_exact_clique(cuda_card):
+    """Upstream's teaser_cpp_fpfh calls on the pair, as the benchmark's
+    synth100k.frontend cell makes them: ``FPFHEstimation`` in auto mode
+    (the grid plans at this size), ``Matcher`` with cross-check and
+    ``RobustRegistrationSolver.solve`` with PMC_EXACT on the clouds and the
+    correspondences. At least as many correspondences as the JAX package
+    found, <0.1 deg and <0.01 m against the planted transform; no TRIM
+    kernel and no greedy (the facade's host exact clique), kernel R once."""
+    from teaserpp_tpu_torch.features import spatial
+
+    src, dst, r_true, t_true = make_frontend_pair(FRONTEND_N)
+    params = RobustRegistrationSolverParams(
+        noise_bound=0.01, cbar2=1.0, estimate_scaling=False, rotation_gnc_factor=1.4,
+        rotation_max_iterations=100, rotation_cost_threshold=0.005,
+        inlier_selection_mode=InlierSelectionMode.PMC_EXACT)
+
+    def run():
+        spatial.reset_frontend()
+        fp = FPFHEstimation(device=cuda_card)
+        feats = [fp.computeFPFHFeatures(c, *FRONTEND_RADII) for c in (src, dst)]
+        corr = Matcher(device=cuda_card).calculateCorrespondences(src, dst, *feats, False, True,
+                                                                  False, 0.95)
+        solver = RobustRegistrationSolver(params, device=cuda_card)
+        return corr, solver.solve(src, dst, corr), solver
+
+    (corr, sol, solver), launches = run_counted(run)
+    assert launches == launched(gnc_tls=1)
+    # the grid route: each pass tests a few percent of the N^2 pairs
+    assert spatial.FRONTEND["fpfh_candidates"] < 0.1 * 2 * FRONTEND_N ** 2
+    assert spatial.FRONTEND["correspondences"] == len(corr) >= JAX_FRONTEND_CORRESPONDENCES
+    assert sol.valid and len(solver.getInlierMaxClique()) >= JAX_FRONTEND_CLIQUE
+    assert rotation_error_deg(sol.rotation, r_true) < 0.1
+    assert translation_error(sol.translation, t_true) < 0.01
 
 
 def plain_nn(queries, database, chunk: int = 256):

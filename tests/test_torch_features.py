@@ -255,7 +255,7 @@ def test_spfh_and_fpfh_with_shared_normals_match_jax(route, dtype):
         r2 = t_normals._r2_dense(rf, TORCH_DTYPE[dtype], "cpu")
         got_spfh = t_fpfh._spfh_core(torch.tensor(x[None]), torch.tensor(nrm[None]),
                                      torch.ones(1, n, dtype=TORCH_DTYPE[dtype]),
-                                     torch.tensor(x[None]), torch.tensor(nrm[None]), r2).numpy()
+                                     torch.tensor(x[None]), torch.tensor(nrm[None]), r2)[0].numpy()
         want_spfh = np.concatenate([np.asarray(j_fpfh._spfh_chunk(
             jnp.asarray(x[s:s + CHUNK]), jnp.asarray(nrm[s:s + CHUNK]), jnp.ones(CHUNK, dtype),
             jnp.asarray(x), jnp.asarray(nrm), rf)) for s in range(0, n, CHUNK)])

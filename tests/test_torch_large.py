@@ -3,6 +3,8 @@ and ``solve_large_exact`` of the port against the JAX package on one device
 (``pairs_sharding=None``), at N=512, and the port's own native clique library
 against the JAX package's bridge."""
 
+import time
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -142,6 +144,83 @@ def _random_graph(rng, n, density, planted):
     a[np.ix_(idx, idx)] = True
     a = np.triu(a, 1)
     return a | a.T
+
+
+def _near_clique(rng, m, x, o, p_out):
+    """A front end's graph in small: m inliers (a clique), x near-inliers
+    each missing edges to 1-4 inliers and to 5% of the other near-inliers,
+    o outliers with edges of probability p_out; vertices shuffled."""
+    n = m + x + o
+    a = rng.random((n, n)) < p_out
+    a[:m + x, :m + x] = True
+    for v in range(m, m + x):
+        a[v, rng.choice(m, size=rng.integers(1, 5), replace=False)] = False
+        a[v, m + np.nonzero(rng.random(x) < 0.05)[0]] = False
+    a = np.triu(a, 1)
+    a = a | a.T
+    perm = rng.permutation(n)
+    return a[np.ix_(perm, perm)]
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_exact_clique_of_a_near_clique_is_exact_and_quick(seed):
+    """The coloring search alone took 30 s on such a graph of 1,060
+    vertices (and minutes at the front end's 13,000); past its budget of
+    work the near-clique search finishes the job: a clique of the size the
+    benchmark's plain reference finds by its own exact search."""
+    from regbench.run import load_module
+
+    ref = load_module("reference", "fpfh_frontend")
+    known = load_module("reference", "registration")
+    adj = _near_clique(np.random.default_rng(seed), 400, 60, 600, 0.05)
+    t0 = time.perf_counter()
+    clique, timed_out = texact.exact_max_clique(adj, time_limit=60.0, num_threads=1)
+    elapsed = time.perf_counter() - t0
+    a = torch.from_numpy(adj)
+    want, decided = ref.max_clique(a, known.degrees(a[None])[0])
+    assert decided and not timed_out
+    assert len(clique) == int(want.sum()) > 400
+    assert adj[np.ix_(clique, clique)].sum() == len(clique) * (len(clique) - 1)
+    assert elapsed < 15.0
+
+
+def _with_cover_gadget(adj, rng):
+    """``adj`` with 14 vertices joined to all of its top core and to each
+    other but for a bipartite graph of misses (6 vertices on one side, 8 of
+    2-6 misses each on the other) on which covering the misses greedily by
+    the most misses takes the 8 where the least cover is the 6."""
+    n = len(adj)
+    top = np.nonzero(texact.native_core_numbers(adj) == texact.native_core_numbers(adj).max())[0]
+    miss = np.zeros((14, 14), bool)
+    start = {}
+    for r, d in enumerate([6, 5, 4, 3, 3, 2, 2, 2], start=6):
+        left = [(start.get(d, 0) + k) % 6 for k in range(d)]
+        start[d] = start.get(d, 0) + d
+        miss[r, left] = miss[left, r] = True
+    out = np.zeros((n + 14, n + 14), bool)
+    out[:n, :n] = adj
+    out[n:, top] = out[top, n:] = True
+    out[n:, n:] = ~miss
+    np.fill_diagonal(out, False)
+    perm = rng.permutation(n + 14)
+    return out[np.ix_(perm, perm)]
+
+
+@pytest.mark.parametrize("graph", ["near_clique", "near_clique_with_cover_gadget"])
+def test_near_clique_search_matches_the_jax_bridge(graph):
+    """Two graphs on which the coloring search passes its budget of work and
+    the near-clique search decides the answer: the clique's size is the JAX
+    package's bridge's (PMC's coloring search alone, run to its end)."""
+    if graph == "near_clique":
+        adj = _near_clique(np.random.default_rng(2), 400, 60, 600, 0.05)
+    else:
+        adj = _with_cover_gadget(_near_clique(np.random.default_rng(1), 400, 60, 600, 0.05),
+                                 np.random.default_rng(11))
+    t_clique, t_timed_out = texact.exact_max_clique(adj, time_limit=60.0, num_threads=1)
+    j_clique, j_timed_out = jexact.exact_max_clique(adj, time_limit=60.0, num_threads=1)
+    assert not t_timed_out and not j_timed_out
+    assert len(t_clique) == len(j_clique) > 400
+    assert adj[np.ix_(t_clique, t_clique)].sum() == len(t_clique) * (len(t_clique) - 1)
 
 
 def test_native_library_matches_the_jax_bridge(rng):
