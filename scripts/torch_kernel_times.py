@@ -16,7 +16,11 @@ Rows, at the table's shapes and on tests/chip_support.py's inputs: K1
 S (``tls_sweep``) on one chunk of the unknown-scale batch in float32 and on
 4 of its problems in float64; kernel R (``gnc_tls``, the GNC-TLS rotation
 loop) on the chain TIMs of the 512 bunny problems' top cores, (512, 1889)
-float32, and of the first alone, (1, 1889).
+float32, and of the first alone, (1, 1889); kernel P (``neighbor_plans``,
+the whole of ``build_neighbor_plans_tensor``: its launches, the tensor
+operations between them and its one host read) on the synth100k cloud,
+(100000, 3) float64 at radii 0.05 and 0.10, beside the host numpy
+``build_neighbor_plans`` it replaces (wall clock, median of 3).
 
 Times are CUDA events around one call, the median of 20 calls for a kernel
 and of 3 for its plain version, each after one call to warm up. Bounds are
@@ -35,6 +39,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -85,17 +90,21 @@ def main() -> int:
         return 1
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     from chip_support import (
+        FRONTEND_N,
+        FRONTEND_RADII,
         GREEDY_CASES,
         GREEDY_SEEDS,
         adjacency_case,
         gnc_tls_case,
         greedy_case,
         kernel_inputs,
+        make_frontend_pair,
         slab_cases,
         tls_sweep_case,
         to_device,
     )
     from regbench import yardstick
+    from teaserpp_tpu_torch.features import spatial
     from teaserpp_tpu_torch.ops import _build
     from teaserpp_tpu_torch.ops import cuda_kernels as ck
 
@@ -197,6 +206,24 @@ def main() -> int:
                lambda: ck.gnc_tls_plain(**args),
                **least(nbytes=int(passes.sum()) * n * column_bytes),
                rounds=[int(rounds.min()), int(rounds.max())])
+
+    pts = make_frontend_pair(FRONTEND_N)[0]
+    x = torch.from_numpy(pts).to("cuda")
+    ck.reset_launches()
+    plans = spatial.build_neighbor_plans_tensor(x, FRONTEND_RADII)
+    launches = ck.LAUNCHES["neighbor_plans"]
+    host_s = []
+    for _ in range(PLAIN_REPS):
+        t0 = time.perf_counter()
+        spatial.build_neighbor_plans(pts, FRONTEND_RADII)
+        host_s.append(time.perf_counter() - t0)
+    # the cloud read once; perm, inv and each radius's candidate lists written once
+    out_bytes = 16 * len(pts) + sum(4 * p.nblocks * p.mpad for p in plans)
+    report("P", [*pts.shape, *FRONTEND_RADII],
+           lambda: spatial.build_neighbor_plans_tensor(x, FRONTEND_RADII),
+           lambda: spatial.build_neighbor_plans_plain(x, FRONTEND_RADII),
+           host_ms=statistics.median(host_s) * 1e3, launches=launches,
+           mpad=[p.mpad for p in plans], **least(nbytes=x.numel() * 8 + out_bytes))
 
     for name, so in _build.build_all().items():
         log = pathlib.Path(str(so) + ".log")

@@ -19,7 +19,11 @@ from teaserpp_tpu_torch.features.fpfh import (
     compute_fpfh_features,
     compute_fpfh_pruned,
 )
-from teaserpp_tpu_torch.features.spatial import NeighborPlan, build_neighbor_plans
+from teaserpp_tpu_torch.features.spatial import (
+    NeighborPlan,
+    build_neighbor_plans,
+    build_neighbor_plans_tensor,
+)
 from teaserpp_tpu_torch.features.matcher import Matcher
 
 __all__ = [
@@ -32,5 +36,6 @@ __all__ = [
     "compute_fpfh_pruned",
     "NeighborPlan",
     "build_neighbor_plans",
+    "build_neighbor_plans_tensor",
     "Matcher",
 ]

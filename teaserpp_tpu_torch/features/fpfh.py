@@ -48,8 +48,7 @@ import torch
 
 from teaserpp_tpu_torch.device import DeviceLike, resolve_device
 from teaserpp_tpu_torch.features.normals import (
-    _floating,
-    _host,
+    _points_dtype,
     _r2_dense,
     _r2_grid,
     _require_tensor,
@@ -64,7 +63,12 @@ from teaserpp_tpu_torch.features.normals import (
     real_slots,
     sorted_on_device,
 )
-from teaserpp_tpu_torch.features.spatial import SENTINEL, NeighborPlan, build_neighbor_plans
+from teaserpp_tpu_torch.features.spatial import (
+    SENTINEL,
+    NeighborPlan,
+    build_neighbor_plans,
+    build_neighbor_plans_tensor,
+)
 from teaserpp_tpu_torch.parallel.multihost import require_mesh
 from teaserpp_tpu_torch.utils.timing import StageTimer
 
@@ -244,9 +248,10 @@ def compute_fpfh_pruned(
     candidate set provably contains every radius neighbour; the exact
     predicate is re-tested) at a few percent of the pair work.
 
-    ``pts`` are host points, sorted on the host; ``normals`` may be a tensor
-    on ``device`` (gathered there) or host numbers. Runs in the points'
-    dtype on ``device`` (CUDA unless named). With a ``mesh`` (a port
+    ``pts`` are host points, sorted on the host, or a tensor on ``device``
+    (gathered there, as a plan built there gathers every input); ``normals``
+    may be a tensor on ``device`` or host numbers. Runs in the points' dtype
+    on ``device`` (CUDA unless named). With a ``mesh`` (a port
     ``Mesh``) SPFH and FPFH are sharded over its first axis, as the normals
     of :func:`~teaserpp_tpu_torch.features.normals.estimate_normals_pruned`
     are, the SPFH table gathered between the two passes; every rank of the
@@ -255,9 +260,8 @@ def compute_fpfh_pruned(
     check_plan_radius(radius, plan)
     steps, sizes = mesh_steps(plan, mesh)
     dev = resolve_device(device)
-    pts_np = _host(pts)
-    dtype = _floating(torch.as_tensor(pts_np[:0]).dtype)
-    sp = sorted_on_device(pts_np, plan, SENTINEL, dev, dtype)
+    dtype = _points_dtype(pts)
+    sp = sorted_on_device(pts, plan, SENTINEL, dev, dtype)
     sn = sorted_on_device(normals, plan, 0.0, dev, dtype)
     sd = None if defined is None else sorted_on_device(defined, plan, False, dev, torch.bool)
     rows = query_rows(plan, dev)
@@ -283,7 +287,9 @@ class FPFHEstimation:
       * ``"dense"``  — every pass tests all N candidates per query;
       * ``"grid"``   — grid-hash candidate pruning (features/spatial.py),
         the analog of the reference's kd-tree radius searches
-        (fpfh.cc:28-40) with identical neighbour semantics;
+        (fpfh.cc:28-40) with identical neighbour semantics; on CUDA the
+        plans are built on the card (``build_neighbor_plans_tensor``), on
+        the CPU in host numpy (``build_neighbor_plans``), equal integers;
       * ``"auto"``   — grid when the cloud is large enough for pruning to
         win (N >= 8192) AND the plan actually prunes (candidate work
         < 70% of dense); dense otherwise.
@@ -336,22 +342,33 @@ class FPFHEstimation:
             if self._neighbor_mode == "grid" or (
                 self._neighbor_mode == "auto" and n >= 8192 and ratio_ok
             ):
-                plans = build_neighbor_plans(pts, (normal_search_radius, fpfh_search_radius))
+                radii = (normal_search_radius, fpfh_search_radius)
+                if self.device.type == "cuda":
+                    # the cloud in float64 on the card (from pinned memory,
+                    # no host sync) and the plans built there
+                    cloud = torch.from_numpy(np.ascontiguousarray(pts)).pin_memory().to(
+                        self.device, non_blocking=True)
+                    plans = build_neighbor_plans_tensor(cloud, radii)
+                else:
+                    plans = build_neighbor_plans(pts, radii)
                 if self._neighbor_mode == "auto" and not all(
                     p.pair_fraction < 0.7 for p in plans
                 ):
                     plans = None  # pruning would not pay for its gathers
 
         if plans is not None:
-            # host points: both pruned passes sort on the host, so no device
-            # copy of the cloud is made on this branch
-            host = pts.astype(torch.empty((), dtype=self.dtype).numpy().dtype)
+            # the passes sort the cloud where the plans are: on the card the
+            # float64 copy made for the plans, on the CPU the host points
+            if self.device.type == "cuda":
+                cloud = cloud.to(self.dtype)
+            else:
+                cloud = pts.astype(torch.empty((), dtype=self.dtype).numpy().dtype)
             with timer.stage("normals", sync=self.device):
-                nres = estimate_normals_pruned(host, normal_search_radius, plans[0],
+                nres = estimate_normals_pruned(cloud, normal_search_radius, plans[0],
                                                mesh=self._mesh, device=self.device)
                 self._normals = nres.normals.cpu().numpy()
             with timer.stage("fpfh", sync=self.device):
-                desc = compute_fpfh_pruned(host, nres.normals, fpfh_search_radius, plans[1],
+                desc = compute_fpfh_pruned(cloud, nres.normals, fpfh_search_radius, plans[1],
                                            mesh=self._mesh, device=self.device,
                                            defined=nres.valid)
                 return desc.cpu().numpy()
@@ -371,8 +388,8 @@ class FPFHEstimation:
     def getStageTimings(self) -> dict:
         """Wall-clock seconds per stage of the last ``computeFPFHFeatures``
         (``plans``: the route chosen and, on the grid route, its neighbour
-        plans built on the host; ``normals``; ``fpfh``), each ending in a
-        device sync."""
+        plans, built on the card on CUDA and on the host on the CPU;
+        ``normals``; ``fpfh``), each ending in a device sync."""
         return self._timer.as_dict()
 
 

@@ -230,14 +230,23 @@ def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _points_dtype(pts) -> torch.dtype:
+    """The passes' float type for points given as a tensor or host numbers."""
+    if isinstance(pts, torch.Tensor):
+        return _floating(pts.dtype)
+    return _floating(torch.as_tensor(np.asarray(pts)[:0]).dtype)
+
+
 def sorted_on_device(x, plan: NeighborPlan, fill, device: torch.device,
                      dtype) -> torch.Tensor:
     """``x`` in the plan's sorted order with one trailing ``fill`` row, on
-    ``device``: :func:`spatial.sorted_padded` for host arrays, the same gather
-    on the device for a tensor already there (no round trip; ``cuda`` names
-    the current card)."""
-    if isinstance(x, torch.Tensor) and x.device.type == device.type and (
-            device.index is None or x.device.index == device.index):
+    ``device``: :func:`spatial.sorted_padded` for host arrays and a host
+    plan, else the same gather on the device (no round trip for a tensor
+    already there or a plan built there; ``cuda`` names the current card)."""
+    on_device = isinstance(x, torch.Tensor) and x.device.type == device.type and (
+        device.index is None or x.device.index == device.index)
+    if on_device or isinstance(plan.perm, torch.Tensor):
+        x = torch.as_tensor(x, device=device)
         perm = torch.as_tensor(plan.perm, device=device)
         tail = torch.full((1,) + tuple(x.shape[1:]), fill, dtype=dtype, device=device)
         return torch.cat([x.to(dtype)[perm], tail])
@@ -247,9 +256,9 @@ def sorted_on_device(x, plan: NeighborPlan, fill, device: torch.device,
 def query_rows(plan: NeighborPlan, device) -> torch.Tensor:
     """(nblocks, block) sorted-row index of every query slot; the tail block's
     padding slots name the trailing fill row ``n`` (:func:`spatial.query_blocks`)."""
-    pad = plan.nblocks * plan.block - plan.n
-    idx = np.concatenate([np.arange(plan.n), np.full(pad, plan.n, np.int64)])
-    return torch.as_tensor(idx.reshape(plan.nblocks, plan.block), device=device)
+    idx = torch.full((plan.nblocks * plan.block,), plan.n, dtype=torch.int64, device=device)
+    idx[: plan.n] = torch.arange(plan.n, device=device)
+    return idx.reshape(plan.nblocks, plan.block)
 
 
 def block_steps(plan: NeighborPlan) -> List[range]:
@@ -313,19 +322,19 @@ def estimate_normals_pruned(
     set provably contains every radius neighbour, the exact Euclidean
     predicate is re-tested) at a few percent of the pair work.
 
-    ``pts`` (N, 3) are host points (numpy, or a tensor), sorted on the host
-    by ``plan`` (from :func:`~teaserpp_tpu_torch.features.spatial.
-    build_neighbor_plans` for this radius) and computed in their own dtype
-    on ``device`` (CUDA unless named). With a ``mesh`` (a port ``Mesh``)
-    the query blocks are sharded over its first axis (the module docstring)
-    and every rank of it returns the whole result.
+    ``pts`` (N, 3) are points (numpy, or a tensor), sorted by ``plan``
+    (from :func:`~teaserpp_tpu_torch.features.spatial.build_neighbor_plans`
+    or ``build_neighbor_plans_tensor`` for this radius) on the host, or on
+    ``device`` for a tensor there or a plan built there, and computed in
+    their own dtype on ``device`` (CUDA unless named). With a ``mesh`` (a
+    port ``Mesh``) the query blocks are sharded over its first axis (the
+    module docstring) and every rank of it returns the whole result.
     """
     check_plan_radius(radius, plan)
     steps, sizes = mesh_steps(plan, mesh)
     dev = resolve_device(device)
-    pts_np = _host(pts)
-    dtype = _floating(torch.as_tensor(pts_np[:0]).dtype)
-    sp = sorted_on_device(pts_np, plan, SENTINEL, dev, dtype)
+    dtype = _points_dtype(pts)
+    sp = sorted_on_device(pts, plan, SENTINEL, dev, dtype)
     rows = query_rows(plan, dev)
     ci = torch.as_tensor(plan.cand_idx, device=dev).long()
     r2 = _r2_grid(radius, dtype, dev)

@@ -1,14 +1,15 @@
 """Grid-hash neighbor-candidate plans for the feature front-end.
 
-Counterpart of ``teaserpp_tpu/features/spatial.py``, copied line for line
-(host numpy, no JAX): the plans decide which candidates every pass sees, so
-both packages must build equal arrays from equal points.
+Counterpart of ``teaserpp_tpu/features/spatial.py``, whose host numpy
+:func:`build_neighbor_plans` is copied here line for line (no JAX): the
+plans decide which candidates every pass sees, so both packages must build
+equal arrays from equal points.
 
 In place of the reference's kd-tree radius searches (the PCL kd-tree inside
 NormalEstimationOMP / FPFHEstimationOMP, reference fpfh.h:59 + fpfh.cc:28-40),
 which chase pointers point by point,
 
-  1. points are sorted by spatial grid cell on the host (cheap numpy);
+  1. points are sorted by spatial grid cell;
   2. queries are processed in blocks of consecutive sorted points;
   3. each block gets a PADDED candidate index list — the union of the
      sorted-order ranges of every grid cell within Chebyshev cell-distance
@@ -33,6 +34,13 @@ union of two local neighborhoods, not everything in between.
 Every downstream pass keeps the dense path's shape (masked arithmetic over
 fixed (B, M) tiles, one query block at a time) but touches a few percent of
 the pairs.
+
+:func:`build_neighbor_plans_tensor` builds the same integers from a float64
+tensor where it lies: on a CUDA card by the kernels of
+``csrc/neighbor_plans.cu`` (counted in ``ops.cuda_kernels.LAUNCHES
+["neighbor_plans"]``), with one host read, of the plans' widths; on the CPU
+by :func:`build_neighbor_plans_plain`, the same algorithm in plain PyTorch.
+Their plans hold tensors on that device, which the passes take as they are.
 """
 
 from __future__ import annotations
@@ -40,6 +48,9 @@ from __future__ import annotations
 from typing import List, NamedTuple, Sequence
 
 import numpy as np
+import torch
+
+from teaserpp_tpu_torch.ops import cuda_kernels
 
 # The front end's work, counted where it is done (as ``ops.cuda_kernels.
 # LAUNCHES`` counts launches): of each pass, the (query, candidate) pairs it
@@ -57,13 +68,15 @@ def reset_frontend() -> None:
 
 
 class NeighborPlan(NamedTuple):
-    """Host-built candidate plan for one search radius.
+    """Candidate plan for one search radius.
 
     All downstream device arrays are indexed in SORTED order; ``perm``
     gathers original -> sorted, ``inv`` scatters sorted -> original.
     ``cand_idx[b]`` lists candidate point indices (sorted order) for query
     block ``b``; entries equal to ``n`` are padding and must resolve to a
-    sentinel row appended by the caller.
+    sentinel row appended by the caller. The index arrays are numpy from
+    :func:`build_neighbor_plans`, tensors on the points' device from
+    :func:`build_neighbor_plans_tensor`, with equal integers.
     """
 
     perm: np.ndarray  # (n,) int64: sorted_x = x[perm]
@@ -190,6 +203,156 @@ def build_neighbor_plans(
                 radius=radius,
             )
         )
+    return plans
+
+
+def _plan_args(pts: torch.Tensor, radii: Sequence[float]):
+    """``(radii, cell, reaches)`` of :func:`build_neighbor_plans_tensor`,
+    refused as :func:`build_neighbor_plans` refuses them."""
+    if not isinstance(pts, torch.Tensor) or pts.dtype != torch.float64:
+        raise TypeError(f"pts must be a float64 tensor, got {getattr(pts, 'dtype', type(pts))}")
+    if pts.dim() != 2 or pts.shape[1] != 3 or pts.shape[0] == 0:
+        raise ValueError(f"pts must be (N, 3) with N >= 1, got {tuple(pts.shape)}")
+    radii = [float(r) for r in radii]
+    cell = min(radii)
+    if cell <= 0:
+        raise ValueError(f"radii must be positive, got {radii}")
+    reaches = [int(np.ceil(r / cell - 1e-12)) for r in radii]
+    for radius, reach in zip(radii, reaches):
+        if (2 * reach + 1) ** 3 > 4096:  # reach > 7
+            raise ValueError(
+                f"radius {radius} needs Chebyshev reach {reach} on the cell "
+                f"grid (cell={cell}, set by the smallest radius): "
+                f"{(2 * reach + 1) ** 3} neighbor-cell offsets is past the "
+                "practical grid-hash regime. Use closer radii, separate plans "
+                "per radius, or the dense path."
+            )
+    return radii, cell, reaches
+
+
+def _sorted_cells(key: torch.Tensor):
+    """The stable sort of the cell keys and the occupied cells, with no host
+    read: ``(perm, inv, skey, first, uniq, starts, lens)``. ``first`` marks
+    the first sorted point of each cell; ``uniq``, ``starts`` and ``lens``
+    hold each cell's key, first sorted index and point count in ascending
+    key order, padded to N with the largest int64, N and 0."""
+    n = key.shape[0]
+    skey, perm = torch.sort(key, stable=True)
+    pos = torch.arange(n, device=key.device)
+    inv = torch.empty_like(perm).scatter_(0, perm, pos)
+    first = torch.ones(n, dtype=torch.bool, device=key.device)
+    first[1:] = skey[1:] != skey[:-1]
+    cell_of = torch.cumsum(first, 0) - 1
+    uniq = torch.full_like(skey, torch.iinfo(torch.int64).max).scatter_(0, cell_of, skey)
+    starts = torch.full_like(skey, n).scatter_reduce_(0, cell_of, pos, "amin")
+    lens = torch.diff(starts, append=starts.new_full((1,), n))
+    return perm, inv, skey, first, uniq, starts, lens
+
+
+def build_neighbor_plans_plain(
+    pts: torch.Tensor, radii: Sequence[float], block: int = 1024, pad_multiple: int = 1024,
+) -> List[NeighborPlan]:
+    """Plain PyTorch version of ``csrc/neighbor_plans.cu``: the plans of
+    :func:`build_neighbor_plans` from (N, 3) float64 ``pts``, a tensor, as
+    tensors on its device.
+
+    The kernels' algorithm: keys ``floor((p - lo) / cell)`` packed in int64;
+    the stable sort and the occupied cells; for each (block, cell)
+    incidence and row ``(di, dj)`` of the reach's offsets, the occupied
+    cells whose keys lie within ``r`` of ``key + (di d1 + dj) d2`` (the
+    host's packed offsets a row of ``dk`` at a time, wraps included), by a
+    binary search into the unique keys; each block's count the sum of its
+    marked cells' lengths; its candidates their sorted-order ranges in
+    ascending cell order, padded with N.
+    """
+    radii, cell, reaches = _plan_args(pts, radii)
+    n = pts.shape[0]
+    lo, hi = pts.amin(0), pts.amax(0)
+    ijk = torch.floor((pts - lo) / cell).long()
+    d1, d2 = (int(d) + 1 for d in torch.floor((hi - lo) / cell).long()[1:])
+    key = (ijk[:, 0] * d1 + ijk[:, 1]) * d2 + ijk[:, 2]
+    perm, inv, skey, first, uniq, starts, lens = _sorted_cells(key)
+    ncells = int(first.sum())
+    uniq, starts, lens = uniq[:ncells], starts[:ncells], lens[:ncells]
+    nblocks = (n + block - 1) // block
+    inc = torch.nonzero((torch.arange(n, device=pts.device) % block == 0) | first)[:, 0]
+    inc_block, base = inc // block, skey[inc]
+    plans = []
+    for radius, reach in zip(radii, reaches):
+        mark = torch.zeros((nblocks, ncells), dtype=torch.bool, device=pts.device)
+        for di in range(-reach, reach + 1):
+            for dj in range(-reach, reach + 1):
+                centre = base + (di * d1 + dj) * d2
+                c0 = torch.searchsorted(uniq, centre - reach)
+                c1 = torch.searchsorted(uniq, centre + reach, right=True)
+                for k in range(2 * reach + 1):
+                    hit = c0 + k < c1
+                    mark[inc_block[hit], c0[hit] + k] = True
+        counts = (mark * lens).sum(1)
+        mpad = -(-max(int(counts.max()), 1) // pad_multiple) * pad_multiple
+        # each marked (block, cell)'s range at its offset in the block's list
+        b, c = torch.nonzero(mark, as_tuple=True)  # ascending block, then cell
+        length = lens[c]
+        before = torch.cumsum(length, 0) - length
+        offset = before - (torch.cumsum(counts, 0) - counts)[b]
+        pair = torch.repeat_interleave(torch.arange(len(c), device=pts.device), length)
+        within = torch.arange(len(pair), device=pts.device) - before[pair]
+        cand_idx = torch.full((nblocks, mpad), n, dtype=torch.int32, device=pts.device)
+        cand_idx[b[pair], offset[pair] + within] = (starts[c[pair]] + within).int()
+        plans.append(NeighborPlan(perm=perm, inv=inv, n=n, block=block, nblocks=nblocks,
+                                  mpad=mpad, cand_idx=cand_idx, radius=radius))
+    return plans
+
+
+def build_neighbor_plans_tensor(
+    pts: torch.Tensor, radii: Sequence[float], block: int = 1024, pad_multiple: int = 1024,
+) -> List[NeighborPlan]:
+    """:func:`build_neighbor_plans` on the device of ``pts``, (N, 3) float64:
+    the same integers, as tensors there.
+
+    On the CPU this is :func:`build_neighbor_plans_plain`. On CUDA the
+    kernels of ``csrc/neighbor_plans.cu`` run on the current stream, each
+    launch counted in ``LAUNCHES["neighbor_plans"]`` (the keys once, then
+    the marks and the candidate lists once a radius), the sort and the
+    occupied cells between them as tensor operations; the plans' widths
+    ``mpad`` are the one host read. Every table is over the points or the
+    occupied cells: the mark of each radius is a (blocks, ceil(N / 32))
+    bitmap, with the sum of the marked cells' lengths a word beside it.
+    """
+    if pts.device.type == "cpu":
+        return build_neighbor_plans_plain(pts, radii, block, pad_multiple)
+    if pts.device.type != "cuda":
+        raise ValueError(f"the plans are built on cuda or cpu, not {pts.device}")
+    radii, cell, reaches = _plan_args(pts, radii)
+    if block < 1:
+        raise ValueError(f"block must be positive, got {block}")
+    n, dev = pts.shape[0], pts.device
+    pts = pts.contiguous()
+    lohi = torch.stack([pts.amin(0), pts.amax(0)])
+
+    def launch(entry, *args):
+        cuda_kernels._launch("neighbor_plans", "neighbor_plans", dev, *args, entry=entry)
+
+    key = torch.empty(n, dtype=torch.int64, device=dev)
+    launch("plan_keys", pts.data_ptr(), lohi.data_ptr(), cell, n, key.data_ptr())
+    perm, inv, skey, _, uniq, starts, lens = _sorted_cells(key)
+    nblocks, words = (n + block - 1) // block, (n + 31) // 32
+    marks = []
+    for reach in reaches:
+        mark = torch.zeros((nblocks, words), dtype=torch.int32, device=dev)
+        wsum = torch.zeros_like(mark)
+        launch("plan_mark", skey.data_ptr(), uniq.data_ptr(), lens.data_ptr(), lohi.data_ptr(),
+               cell, n, block, reach, words, mark.data_ptr(), wsum.data_ptr())
+        marks.append((mark, wsum))
+    widths = torch.stack([wsum.sum(1).amax() for _, wsum in marks]).tolist()  # the host read
+    plans = []
+    for radius, (mark, wsum), width in zip(radii, marks, widths):
+        mpad = -(-max(width, 1) // pad_multiple) * pad_multiple
+        cand_idx = torch.empty((nblocks, mpad), dtype=torch.int32, device=dev)
+        launch("plan_cands", mark.data_ptr(), wsum.data_ptr(), starts.data_ptr(),
+               lens.data_ptr(), nblocks, words, mpad, n, cand_idx.data_ptr())
+        plans.append(NeighborPlan(perm=perm, inv=inv, n=n, block=block, nblocks=nblocks,
+                                  mpad=mpad, cand_idx=cand_idx, radius=radius))
     return plans
 
 

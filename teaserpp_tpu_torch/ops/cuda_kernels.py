@@ -22,6 +22,11 @@ Counterpart of ``teaserpp_tpu/ops/pallas_kernels.py``:
   runs every round of the GNC-TLS rotation loop
   (``solvers/rotation.py::_solve_gnc_tls``), which the JAX package writes as
   a ``vmap``ped ``lax.while_loop``, in one launch, one block a problem.
+* ``neighbor_plans`` (``csrc/neighbor_plans.cu``) replaces no Pallas kernel:
+  it builds the front end's grid-hash neighbour plans, which both packages
+  build in host numpy (``features/spatial.py``); its wrapper and plain
+  version are ``features/spatial.py::build_neighbor_plans_tensor`` and
+  ``build_neighbor_plans_plain``.
 
 As in the JAX package, of the three TRIM kernels only ``trim_bits`` sits on
 a solver path; the other two are public operations of this module. All
@@ -49,7 +54,7 @@ from teaserpp_tpu_torch.ops.tims import _pdist2, trim_pred_sq
 from teaserpp_tpu_torch.ops.tls import _SCAN_BLOCK, prefix_sum
 
 LAUNCHES = {"trim_bits": 0, "trim_bits_slab": 0, "trim_degrees": 0, "trim_adjacency_i8": 0,
-            "greedy_clique": 0, "tls_sweep": 0, "gnc_tls": 0}
+            "greedy_clique": 0, "tls_sweep": 0, "gnc_tls": 0, "neighbor_plans": 0}
 
 # Pairs per chunk of the plain version: bounds its float intermediates to a
 # few hundred MB whatever the batch and N.
@@ -153,6 +158,14 @@ _LAUNCH_ARGTYPES = {
     # batch, d, n, gnc_factor, max_iterations, cost_threshold, f64, stream
     "gnc_tls": [_POINTER, _POINTER, _POINTER, _POINTER, _DOUBLE, _POINTER, _POINTER, _POINTER,
                 _POINTER, _INT, _INT, _LONG, _DOUBLE, _INT, _DOUBLE, _INT, _POINTER],
+    # pts, lohi, cell, n, keys, stream
+    "plan_keys": [_POINTER, _POINTER, _DOUBLE, _LONG, _POINTER, _POINTER],
+    # skey, uniq, lens, lohi, cell, n, block, reach, words, mark, wsum, stream
+    "plan_mark": [_POINTER, _POINTER, _POINTER, _POINTER, _DOUBLE, _LONG, _INT, _INT, _LONG,
+                  _POINTER, _POINTER, _POINTER],
+    # mark, wsum, starts, lens, nblocks, words, mpad, fill, out, stream
+    "plan_cands": [_POINTER, _POINTER, _POINTER, _POINTER, _LONG, _LONG, _INT, _INT, _POINTER,
+                   _POINTER],
 }
 
 

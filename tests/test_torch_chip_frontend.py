@@ -6,7 +6,9 @@ plans, normals, FPFH, the matcher with cross-check and
 against the planted transform and the JAX package's counts; the matcher against a plain exact nearest neighbour, the
 grid passes and the matcher against the CPU; examples/fpfh_icp_registration.py's
 flow (``FPFHEstimation``, ``Matcher``, ``RobustRegistrationSolver``, ICP) on
-a wavy patch; and ``python -m teaserpp_tpu_torch.cli``.
+a wavy patch; and ``python -m teaserpp_tpu_torch.cli``. The neighbour
+plans built on the card against the host's, on the pair's cloud and on a
+scan-like slab, and the grid route fed each.
 
 Marked ``chip``: skips without a CUDA card. No JAX; on a machine with an
 H100::
@@ -53,6 +55,7 @@ from teaserpp_tpu_torch.features import (
     FPFHEstimation,
     Matcher,
     build_neighbor_plans,
+    build_neighbor_plans_tensor,
     compute_fpfh_pruned,
     estimate_normals_pruned,
 )
@@ -63,6 +66,72 @@ pytestmark = pytest.mark.chip
 
 PARITY_QUERIES = 8192
 PARITY_N = 8192  # the synth100k density at half-width 0.4
+PLAN_LAUNCHES = 5  # a cloud's plans at two radii: the keys, a mark and a list a radius
+
+
+def slab_scan(n: int = FRONTEND_N, seed: int = FRONTEND_SEED + 2):
+    """A scan-like slab: n points near a tilted plane across a 100 m x 100 m
+    x 10 m box, whose grid at 0.05 m spans 8e8 cells, nearly all empty."""
+    rng = np.random.default_rng(seed)
+    uv = rng.uniform(0, 100, (n, 2))
+    return np.stack([uv[:, 0], uv[:, 1], 0.1 * uv[:, 0] + rng.normal(0, 0.02, n)], axis=1)
+
+
+PLAN_CLOUDS = {"synth100k": lambda: make_frontend_pair(FRONTEND_N)[0], "slab": slab_scan}
+
+
+@pytest.mark.parametrize("cloud", sorted(PLAN_CLOUDS))
+def test_card_plans_equal_the_host(cloud, cuda_card):
+    """``build_neighbor_plans_tensor`` on the card: the kernels' plans equal
+    ``build_neighbor_plans``'s element for element, at radii 0.05 and 0.10,
+    in 5 launches and one host sync (the read of the widths); the build's
+    peak memory stays within 64 MB of its input, though the slab's grid box
+    holds 8e8 cells."""
+    import warnings
+
+    pts = PLAN_CLOUDS[cloud]()
+    want = build_neighbor_plans(pts, FRONTEND_RADII)
+    x = torch.from_numpy(pts).to(cuda_card)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_card)
+    torch.cuda.reset_peak_memory_stats(cuda_card)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got, launches = run_counted(
+                lambda: build_neighbor_plans_tensor(x, FRONTEND_RADII))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, syncs
+    assert launches == launched(neighbor_plans=PLAN_LAUNCHES)
+    assert torch.cuda.max_memory_allocated(cuda_card) - base < 64 << 20
+    for g, w in zip(got, want, strict=True):
+        for field in ("perm", "inv", "cand_idx"):
+            a, b = getattr(g, field), getattr(w, field)
+            assert a.device == x.device, field
+            a = a.cpu().numpy()
+            assert a.dtype == b.dtype and np.array_equal(a, b), field
+        assert (g.n, g.block, g.nblocks, g.mpad, g.radius) == (
+            w.n, w.block, w.nblocks, w.mpad, w.radius)
+
+
+def test_grid_route_on_the_card_equals_the_host_plans(cuda_card):
+    """``FPFHEstimation``'s grid route on the card (the plans built there in
+    5 launches, the cloud gathered there) returns normals and descriptors
+    bit-equal to the same passes fed the host plans and host points."""
+    pts = make_frontend_pair(FRONTEND_N)[0]
+    est = FPFHEstimation(device=cuda_card)
+    desc, launches = run_counted(lambda: est.computeFPFHFeatures(pts, *FRONTEND_RADII))
+    assert launches == launched(neighbor_plans=PLAN_LAUNCHES)
+    plans = build_neighbor_plans(pts, FRONTEND_RADII)
+    x = pts.astype(np.float32)
+    nres = estimate_normals_pruned(x, FRONTEND_RADII[0], plans[0], device=cuda_card)
+    want = compute_fpfh_pruned(x, nres.normals, FRONTEND_RADII[1], plans[1], device=cuda_card,
+                               defined=nres.valid)
+    assert np.array_equal(est.getNormals(), nres.normals.cpu().numpy())
+    assert np.array_equal(desc, want.cpu().numpy())
 
 
 @pytest.fixture(scope="module")
@@ -111,8 +180,9 @@ def test_synth100k_through_the_facade_with_the_exact_clique(cuda_card):
     (the grid plans at this size), ``Matcher`` with cross-check and
     ``RobustRegistrationSolver.solve`` with PMC_EXACT on the clouds and the
     correspondences. At least as many correspondences as the JAX package
-    found, <0.1 deg and <0.01 m against the planted transform; no TRIM
-    kernel and no greedy (the facade's host exact clique), kernel R once."""
+    found, <0.1 deg and <0.01 m against the planted transform; the plans
+    built on the card for each cloud, no TRIM kernel and no greedy (the
+    facade's host exact clique), kernel R once."""
     from teaserpp_tpu_torch.features import spatial
 
     src, dst, r_true, t_true = make_frontend_pair(FRONTEND_N)
@@ -131,7 +201,7 @@ def test_synth100k_through_the_facade_with_the_exact_clique(cuda_card):
         return corr, solver.solve(src, dst, corr), solver
 
     (corr, sol, solver), launches = run_counted(run)
-    assert launches == launched(gnc_tls=1)
+    assert launches == launched(gnc_tls=1, neighbor_plans=2 * PLAN_LAUNCHES)
     # the grid route: each pass tests a few percent of the N^2 pairs
     assert spatial.FRONTEND["fpfh_candidates"] < 0.1 * 2 * FRONTEND_N ** 2
     assert spatial.FRONTEND["correspondences"] == len(corr) >= JAX_FRONTEND_CORRESPONDENCES

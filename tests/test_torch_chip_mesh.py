@@ -243,15 +243,15 @@ def test_rank_launches(rank, ranks):
     """(a): K1's slab once in the heuristic solve, twice in the exact one
     (its heuristic bound and its prune), whose host search on the first rank
     takes its subgraph's words from K1, and the greedy once in each; (b):
-    the greedy alone; (c): K1 on the rank's half of the batch. Every rank
-    solves each rotation with kernel R: once in (a)'s heuristic solve, twice
-    in the exact one (its bound's and the exact clique's), once in (b) and
-    (c)."""
+    the greedy and each cloud's plans on the card (5 launches a cloud, on
+    every rank); (c): K1 on the rank's half of the batch. Every rank solves
+    each rotation with kernel R: once in (a)'s heuristic solve, twice in the
+    exact one (its bound's and the exact clique's), once in (b) and (c)."""
     assert ranks[rank][1] == {
         "large": launched(trim_bits_slab=1, greedy_clique=1, gnc_tls=1),
         "exact": launched(trim_bits_slab=2, trim_bits=int(rank == 0), greedy_clique=1,
                           gnc_tls=2),
-        "frontend": launched(greedy_clique=1, gnc_tls=1),
+        "frontend": launched(greedy_clique=1, gnc_tls=1, neighbor_plans=10),
         "batch": launched(trim_bits=1, gnc_tls=1),
     }
 

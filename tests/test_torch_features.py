@@ -92,6 +92,105 @@ def test_plans_equal_jax(radii):
                           j_spatial.query_blocks(sp, want[0]))
 
 
+def _row_ends(seed=3):
+    """Points in the first and the last cell of each grid row along z (cell
+    0.1, 8 x 8 x 8 cells): a packed offset of dk = +-1 from one row's end
+    lands on the next row's start, which the host counts as a neighbour."""
+    ijk = np.stack(np.meshgrid(np.arange(8), np.arange(8), [0, 7], indexing="ij"), -1)
+    cells = ijk.reshape(-1, 3).astype(np.float64)
+    rng = np.random.default_rng(seed)
+    pts = (cells[:, None, :] + rng.uniform(0.2, 0.8, (len(cells), 6, 3))) * 0.1
+    return pts.reshape(-1, 3)
+
+
+def _slab(seed=4, n=5000):
+    """A thin tilted slab across a 10 x 10 x 2 box: most of its bounding box
+    is empty."""
+    rng = np.random.default_rng(seed)
+    uv = rng.uniform(0, 10, (n, 2))
+    return np.stack([uv[:, 0], uv[:, 1], 0.2 * uv[:, 0] + rng.uniform(0, 0.05, n)], axis=1)
+
+
+def _wrapped_candidates(pts, plan, cell):
+    """Candidates of each block that lie beyond the plan's Chebyshev reach of
+    every cell of the block (reached only through a wrapped packed offset)."""
+    ijk = np.floor((pts - pts.min(0)) / cell).astype(np.int64)[plan.perm]
+    reach = int(np.ceil(plan.radius / cell - 1e-12))
+    wrapped = 0
+    for b in range(plan.nblocks):
+        q = np.unique(ijk[b * plan.block:(b + 1) * plan.block], axis=0)
+        c = plan.cand_idx[b]
+        c = np.unique(ijk[c[c < plan.n]], axis=0)
+        dist = np.abs(q[:, None, :] - c[None, :, :]).max(-1).min(0)
+        wrapped += int((dist > reach).sum())
+    return wrapped
+
+
+PLAN_CASES = {
+    # (points, radii, block, pad_multiple): reaches 1-3 between them
+    "cube6000": (lambda: np.random.default_rng(5).uniform(-1, 1, (6000, 3)), (0.1, 0.2), 512, 256),
+    "slab": (_slab, (0.1, 0.3), 256, 128),
+    "row_ends": (_row_ends, (0.1, 0.1), 64, 64),
+    "ragged": (lambda: _wavy(m=71), (0.07, 0.21), 128, 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_tensor_plans_equal_host_and_jax(case):
+    """The plain PyTorch plans (``build_neighbor_plans_tensor`` on a CPU
+    tensor) equal the host numpy plans and JAX's integer for integer."""
+    make, radii, block, pad = PLAN_CASES[case]
+    pts = make()
+    got = t_spatial.build_neighbor_plans_tensor(torch.from_numpy(pts), radii, block, pad)
+    host = t_spatial.build_neighbor_plans(pts, radii, block, pad)
+    want = j_spatial.build_neighbor_plans(pts, radii, block, pad)
+    for g, h, w in zip(got, host, want, strict=True):
+        for field in ("perm", "inv", "cand_idx"):
+            a = getattr(g, field)
+            assert isinstance(a, torch.Tensor) and a.device.type == "cpu", field
+            for b in (getattr(h, field), getattr(w, field)):
+                assert a.numpy().dtype == b.dtype and np.array_equal(a.numpy(), b), field
+        assert (g.n, g.block, g.nblocks, g.mpad, g.radius) == (
+            h.n, h.block, h.nblocks, h.mpad, h.radius) == (
+            w.n, w.block, w.nblocks, w.mpad, w.radius)
+    if case == "row_ends":
+        assert _wrapped_candidates(pts, host[0], min(radii)) > 0
+    if case == "ragged":
+        assert len(pts) % block and {int(np.ceil(r / min(radii) - 1e-12)) for r in radii} == {1, 3}
+
+
+@DTYPES
+def test_pruned_passes_equal_from_tensor_and_host_plans(dtype):
+    """The pruned normals and FPFH from the tensor plans and the points as a
+    tensor (the card route's inputs) equal those from the host plans and
+    host points, bit for bit."""
+    pts = _wavy()
+    radii = (0.12, 0.2)
+    host = t_spatial.build_neighbor_plans(pts, radii, block=64, pad_multiple=64)
+    tens = t_spatial.build_neighbor_plans_tensor(torch.from_numpy(pts), radii, 64, 64)
+    x = pts.astype(dtype)
+    results = []
+    for plans, cloud in ((host, x), (tens, torch.from_numpy(pts).to(TORCH_DTYPE[dtype]))):
+        nres = t_normals.estimate_normals_pruned(cloud, radii[0], plans[0], device="cpu")
+        desc = t_fpfh.compute_fpfh_pruned(cloud, nres.normals, radii[1], plans[1],
+                                          device="cpu", defined=nres.valid)
+        results.append((*nres, desc))
+    for a, b in zip(*results):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_tensor_plans_refuse_as_the_host():
+    pts = torch.from_numpy(_wavy(m=16))
+    with pytest.raises(ValueError, match="grid-hash regime"):
+        t_spatial.build_neighbor_plans_tensor(pts, (0.005, 0.25))
+    with pytest.raises(ValueError, match="radii must be positive"):
+        t_spatial.build_neighbor_plans_tensor(pts, (0.0, 0.1))
+    with pytest.raises(TypeError, match="float64"):
+        t_spatial.build_neighbor_plans_tensor(pts.float(), (0.1, 0.2))
+    with pytest.raises(ValueError, match=r"\(N, 3\)"):
+        t_spatial.build_neighbor_plans_tensor(pts[:0], (0.1, 0.2))
+
+
 def test_plan_guards_raise_as_jax():
     pts = _wavy(m=16)
     (plan,) = t_spatial.build_neighbor_plans(pts, (0.1,), block=64, pad_multiple=64)

@@ -12,6 +12,7 @@ import torch
 
 from teaserpp_tpu.ops import tims as jtims
 from teaserpp_tpu_torch.clique import kcore as tkcore
+from teaserpp_tpu_torch.features import spatial
 from teaserpp_tpu_torch.ops import cuda_kernels as ck
 from teaserpp_tpu_torch.ops.procrustes import svd_rot
 from teaserpp_tpu_torch.ops import tims as ttims
@@ -107,7 +108,7 @@ def test_wrappers_on_cpu_are_plain_and_uncounted(rng):
     s, d = _t(src), _t(dst)
     before = dict(ck.LAUNCHES)
     assert set(before) == {"trim_bits", "trim_bits_slab", "trim_degrees", "trim_adjacency_i8",
-                           "greedy_clique", "tls_sweep", "gnc_tls"}
+                           "greedy_clique", "tls_sweep", "gnc_tls", "neighbor_plans"}
     assert torch.equal(ck.trim_degrees(s, d, BETA), ck.trim_degrees_plain(s, d, BETA))
     assert torch.equal(ck.trim_adjacency_i8(s, d, BETA),
                        ck.trim_adjacency_i8_plain(s, d, BETA))
@@ -121,6 +122,11 @@ def test_wrappers_on_cpu_are_plain_and_uncounted(rng):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     gnc = (s, d, 0.01, 1.4, 100, 1e-6, valid, svd_rot)
     assert all(torch.equal(g, w) for g, w in zip(ck.gnc_tls(*gnc), ck.gnc_tls_plain(*gnc)))
+    cloud = torch.from_numpy(rng.uniform(-1, 1, (300, 3)))
+    got, want = (f(cloud, (0.2, 0.4), 64, 64) for f in (spatial.build_neighbor_plans_tensor,
+                                                       spatial.build_neighbor_plans_plain))
+    assert all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+               for g, w in zip(got, want) for a, b in zip(g, w))
     assert ck.LAUNCHES == before
 
 

@@ -255,7 +255,7 @@ def test_native_library_is_built_inside_the_port():
     assert _build.BUILD_DIR.parent.name == "teaserpp_tpu_torch"
     assert "maxclique" in _build.host_sources() and "maxclique" not in _build.sources()
     assert set(_build.sources()) == {"trim_bits", "trim_degrees", "trim_adjacency",
-                                     "greedy_clique", "tls_sweep", "gnc_tls"}
+                                     "greedy_clique", "tls_sweep", "gnc_tls", "neighbor_plans"}
 
 
 def test_large_result_to_numpy_takes_either_package(problem):
