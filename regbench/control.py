@@ -22,6 +22,10 @@ import time
 from typing import Optional
 
 
+def _host(x):
+    return None if x is None else x.cpu().numpy()
+
+
 def control_readings(workload: str, seed: int, device, override: Optional[dict] = None) -> dict:
     """The control's numbers for one seed of ``workload``: ``checks.Verdict``
     as a dict, with the limits of the cell beside them."""
@@ -42,9 +46,13 @@ def control_readings(workload: str, seed: int, device, override: Optional[dict] 
     got = ref.solve(src_t, dst_t, config["solver"], dtype=torch.bfloat16,
                     graph_dtype=torch.bfloat16)
     t2 = time.perf_counter()
+    cert = {}
+    if checks.certifying(cell["limits"]):
+        cert = {side + f: _host(getattr(r, f, None)) for side, r in (("", got), ("ref_", want))
+                for f in checks.CERTIFICATE}
     v = checks.compare(*(x.cpu().numpy() for x in (
         got.rotation, got.translation, got.scale, got.inliers, want.rotation,
-        want.translation, want.scale, want.inliers, want.decided)), cell["limits"])
+        want.translation, want.scale, want.inliers, want.decided)), cell["limits"], **cert)
     return {"workload": workload, "seed": seed, "problems": int(len(src)),
             "correct": v.correct, "failed": v.failed, "checks": v.as_json(),
             "reference_s": t1 - t0, "control_s": t2 - t1}

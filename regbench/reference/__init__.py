@@ -17,6 +17,12 @@ type below the configuration's), a ``Reference`` of
 * ``inliers`` ``(P, n)`` bool, the selected inlier set;
 * ``decided`` ``(P,)`` bool, whether the reference could certify it.
 
+A reference of a configuration that certifies its answers gives a result
+that also has ``optimal`` ``(P,)`` bool and ``suboptimality`` ``(P,)``
+float64, its certifier's verdict and best gap; the harness reads them by
+name, and only in a cell whose limits name ``cert_flips`` and
+``subopt_diff`` (``checks.py``).
+
 A reference imports nothing of the program and takes nothing the program
 made: it reads the generator's inputs and the configuration.
 """

@@ -145,6 +145,16 @@ def _metrics(workload: str, kind: str, source, folder: str) -> dict:
     return out
 
 
+def _certificates(answers, rows) -> np.ndarray:
+    """``(2, A)`` float64: each row's ``optimal`` (0/1) and
+    ``suboptimality`` from its answer, NaN where the answer has none."""
+    out = np.full((2, len(rows)), np.nan)
+    for i, (_, a, k) in enumerate(rows):
+        if len(answers[a]) > 5:
+            out[:, i] = answers[a][5][k], answers[a][6][k]
+    return out
+
+
 def _power_limit() -> Optional[str]:
     import subprocess
 
@@ -230,7 +240,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
     got = [np.stack([answers[a][f][k] for _, a, k in rows]) for f in range(1, 5)]
     want = [x.cpu().numpy()[idx] for x in (sol.rotation, sol.translation, sol.scale,
                                            sol.inliers, sol.decided)]
-    verdict = checks.compare(*got, *want, cell["limits"])
+    cert = {}
+    if checks.certifying(cell["limits"]):
+        cert = dict(zip(checks.CERTIFICATE, _certificates(answers, rows)))
+        for f in checks.CERTIFICATE:
+            x = getattr(sol, f, None)
+            cert["ref_" + f] = None if x is None else x.cpu().numpy()[idx]
+    verdict = checks.compare(*got, *want, cell["limits"], **cert)
 
     dev = {"platform": "gpu" if is_cuda else device.type, "kind": kind, "count": cell["chips"],
            "memory_peak_bytes": memory_peak}

@@ -4,6 +4,7 @@ is a file of its own that the harness finds by name."""
 
 import inspect
 import json
+import math
 import re
 
 import pytest
@@ -50,9 +51,17 @@ def test_cell_file_matches_the_manifest(cell):
     load_module("entries", traffic["entry"])
     driver = load_module("traffic", traffic["driver"])
     assert callable(driver.warm_up) and callable(driver.drive)
-    assert set(doc["limits"]) == {"set_diff", "rot_gap_deg", "trans_gap_m", "scale_gap",
-                                  "undecided"}
-    assert doc["limits"]["set_diff"] == 0 and doc["limits"]["undecided"] == 0
+    five = {"set_diff", "rot_gap_deg", "trans_gap_m", "scale_gap", "undecided"}
+    assert set(doc["limits"]) in (five, five | {"cert_flips", "subopt_diff"})
+    for v in doc["limits"].values():
+        assert isinstance(v, (int, float)) and math.isfinite(v) and v >= 0
+    assert doc["limits"]["undecided"] == 0
+    # correspondences given: the program's clique is the reference's; from raw
+    # clouds, the two front ends' matches part by a share of it (PERF.md, section 2)
+    frontend = "frontend" in load_json("configs", doc["config"])["solver"]
+    assert (doc["limits"]["set_diff"] > 0) if frontend else (doc["limits"]["set_diff"] == 0)
+    if cell == "synth100k.frontend":  # the accepted limit that section 2 argues
+        assert doc["limits"]["set_diff"] == 700
     pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
     assert len(pairs) == len(set(pairs))
 

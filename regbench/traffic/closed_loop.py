@@ -24,10 +24,11 @@ def warm_up(ctx) -> None:
 
 
 def drive(ctx, seconds: float, trace: bool) -> dict:
-    """The window: every answer with its problems' first pool index, each
-    request's latency, the stage times, the profiled events and the
-    window's length (the profiled part plus the rest; the reading of the
-    profiler's events between them is not counted)."""
+    """The window: every answer (the entry's arrays, as it returned them)
+    with its problems' first pool index, each request's latency, the stage
+    times, the profiled events and the window's length (the profiled part
+    plus the rest; the reading of the profiler's events between them is not
+    counted)."""
     import torch
 
     out = {"answers": [], "latencies_s": [], "stage_ms": [], "events": None,
@@ -39,9 +40,9 @@ def drive(ctx, seconds: float, trace: bool) -> dict:
         src, dst, first = ctx.request(r)
         a = time.perf_counter()
         with torch.profiler.record_function(tr.REQUEST):
-            rot, trans, scale, mask = ctx.entry.solve(src, dst, stages)
+            answer = ctx.entry.solve(src, dst, stages)
         out["latencies_s"].append(time.perf_counter() - a)
-        out["answers"].append((first, rot, trans, scale, mask))
+        out["answers"].append((first, *answer))  # with its certificate, where it has one
         if stages is not None:
             out["stage_ms"].append(stages)
         r += 1
