@@ -23,7 +23,8 @@ imported from ``teaserpp_tpu_torch.features``, as in the JAX package) and
 the command-line tool (``python -m teaserpp_tpu_torch.cli``) and the DRS
 optimality certifier (``certification/``: ``DRSCertifier``, DENSE and
 ITERATIVE, ``certify_batch``, ``certify_checkpointed``; float64 by default
-through its ``dtype`` argument). The three
+through its ``dtype`` argument), which ``solve_batch(..., certify=...)``
+runs on every answer of a batch. The three
 TPU kernels of the JAX package are hand-written CUDA kernels
 (``csrc/trim_bits.cu``, ``csrc/trim_degrees.cu``, ``csrc/trim_adjacency.cu``;
 wrappers in ``ops/cuda_kernels.py``).
@@ -43,7 +44,7 @@ from teaserpp_tpu_torch.params import (
     RobustRegistrationSolverParams,
     RotationEstimationAlgorithm,
 )
-from teaserpp_tpu_torch.parallel.batch import pad_problems, solve_batch
+from teaserpp_tpu_torch.parallel.batch import CertifiedSolution, pad_problems, solve_batch
 from teaserpp_tpu_torch.parallel.sharded import (
     LargeSolveResult,
     solve_large_exact,
@@ -67,6 +68,7 @@ INLIER_GRAPH_FORMULATION = InlierGraphFormulation
 
 __all__ = [
     "CertificationResult",
+    "CertifiedSolution",
     "DRSCertifier",
     "DRSCertifierParams",
     "EigSolverType",

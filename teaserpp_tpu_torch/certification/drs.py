@@ -22,6 +22,9 @@ Layout and semantics follow the JAX package:
     others run, as under ``vmap``. Each iteration reads its ``done`` flags on
     the host, and so do the Cholesky retry walk and the proof branch.
 
+The work is counted in :data:`CERTIFY`; with a ``stage_ms`` dict the
+DENSE loop's stages are timed, the device synchronised at each mark.
+
 A Cholesky factorization signals failure by ``info != 0`` from
 ``torch.linalg.cholesky_ex`` (which, unlike ``torch.linalg.cholesky``,
 neither raises nor syncs) or by a NaN in the factor, so that a NaN input
@@ -36,7 +39,7 @@ import hashlib
 import os
 import tempfile
 import zipfile
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -46,6 +49,27 @@ from teaserpp_tpu_torch.device import DeviceLike, resolve_device
 from teaserpp_tpu_torch.ops.linalg import get_nearest_psd, hatmap_columns
 from teaserpp_tpu_torch.ops.procrustes import jacobi_eigh_small
 from teaserpp_tpu_torch.params import DRSCertifierParams, EigSolverType
+from teaserpp_tpu_torch.utils.timing import StageClock
+
+# The certifier's work, counted where it is done (as ``ops.cuda_kernels.
+# LAUNCHES`` counts launches): the loops of lanes run, the lanes
+# certified, the DRS
+# iterations summed over the lanes, the host loop's turns that ran an
+# iteration, and the reads of device values on the host (done flags,
+# Cholesky outcomes, results).
+CERTIFY = {"groups": 0, "lanes": 0, "lane_iterations": 0, "loop_iterations": 0,
+           "host_reads": 0}
+
+
+def reset_certify() -> None:
+    for k in CERTIFY:
+        CERTIFY[k] = 0
+
+
+def _read(x: torch.Tensor) -> torch.Tensor:
+    """``x`` on the host, counted in ``CERTIFY["host_reads"]``."""
+    CERTIFY["host_reads"] += 1
+    return x.cpu()
 
 
 @dataclasses.dataclass
@@ -398,7 +422,7 @@ def _proven_lam_min_lb(sym: torch.Tensor, est: torch.Tensor) -> torch.Tensor:
     floor = 1e-10 * g + 1e-30
 
     def ok(c) -> bool:
-        return not bool(_cholesky(sym + c * eye)[1])
+        return not bool(_read(_cholesky(sym + c * eye)[1]))
 
     zero = torch.zeros((), dtype=sym.dtype, device=sym.device)
     c0 = torch.where(est >= 0, zero, torch.clamp(-est, min=0.0) * (1.0 + 1e-8) + floor)
@@ -433,7 +457,7 @@ def _chol_shifted(sym: torch.Tensor, sigma0: torch.Tensor) -> torch.Tensor:
     c, failed = _cholesky(sym - sigma0[..., None, None] * eye)
     sigma = sigma0
     for _ in range(12):
-        if not bool(failed.any()):
+        if not bool(_read(failed.any())):
             break
         sigma = torch.where(failed, sigma * 8.0, sigma)
         c_try, failed_try = _cholesky(sym - sigma[..., None, None] * eye)
@@ -566,9 +590,10 @@ def _run_lanes(state, consts, it_end: int, body):
     """
     state = [x.clone() for x in state]
     while True:
-        live = ((state[0] < it_end) & ~state[4]).cpu()
+        live = _read((state[0] < it_end) & ~state[4])
         if not bool(live.any()):
             return tuple(state)
+        CERTIFY["loop_iterations"] += 1
         if bool(live.all()):
             state = list(body(state, consts))
             continue
@@ -586,15 +611,22 @@ def _record(traj, best, it, m, m_affine, m_psd, gap, done, params):
     return it + 1, m, best, traj
 
 
-def _dense_body(params: DRSCertifierParams, i_idx, j_idx):
+def _dense_body(params: DRSCertifierParams, i_idx, j_idx, stage_ms):
+    """With a ``stage_ms`` dict each iteration adds its ``psd`` and ``gap``
+    stages to it, the device synchronised at each mark."""
+
     def body(state, consts):
         it, m, best, traj, _ = state
         m_init, mu, theta_prepended = consts
         n = m.shape[-1] // 4 - 1
+        clock = StageClock(stage_ms, m.device)
         m_psd = get_nearest_psd(m)
+        clock.mark("psd")
         temp_w = 2.0 * m_psd - m - m_init
         m_affine = m_init + optimal_dual_projection(temp_w, theta_prepended, i_idx, j_idx)
+        clock = StageClock(stage_ms, m.device)
         gap = suboptimality_gap(m_affine, mu, n, EigSolverType.DENSE)
+        clock.mark("gap")
         # DENSE's gate: the eigvalsh gap, no proof (reference certification.cc:164)
         done = gap < params.sub_optimality
         it, m, best, traj = _record(traj, best, it, m, m_affine, m_psd, gap, done, params)
@@ -603,7 +635,8 @@ def _dense_body(params: DRSCertifierParams, i_idx, j_idx):
     return body
 
 
-def _certify_core_batch(r, src, dst, theta, params: DRSCertifierParams):
+def _certify_core_batch(r, src, dst, theta, params: DRSCertifierParams,
+                        stage_ms: Optional[Dict[str, float]] = None):
     """DENSE DRS loop over a (B, ...) batch. Returns (best, traj, iters)."""
     b = src.shape[0]
     dtype, device = src.dtype, src.device
@@ -617,7 +650,7 @@ def _certify_core_batch(r, src, dst, theta, params: DRSCertifierParams):
         torch.zeros((b,), dtype=torch.bool, device=device),
     )
     it, _, best, traj, _ = _run_lanes(
-        state0, consts, params.max_iterations, _dense_body(params, i_idx, j_idx))
+        state0, consts, params.max_iterations, _dense_body(params, i_idx, j_idx, stage_ms))
     return best, traj, it
 
 
@@ -670,7 +703,7 @@ def _certificate_gate(sym_aff, gap, mu, sub_optimality: float):
     n = sym_aff.shape[-1] // 4 - 1
     candidate = gap < sub_optimality
     proven = torch.zeros_like(candidate)
-    if bool(candidate.any()):
+    if bool(_read(candidate.any())):
         thresh = sub_optimality * mu / (n + 1.0)
         _, failed = _cholesky(sym_aff + thresh[:, None, None] * _eye(sym_aff.shape[-1], sym_aff))
         proven = candidate & ~failed
@@ -736,8 +769,8 @@ def _run_iterative_chunked_batch(r, src, dst, theta, params: DRSCertifierParams)
     max_it = params.max_iterations
     state, consts = _iterative_init_batch(r, src, dst, theta, params)
     while True:
-        its = state[0].cpu()
-        live = ~state[4].cpu() & (its < max_it)
+        its = _read(state[0])
+        live = ~_read(state[4]) & (its < max_it)
         if not bool(live.any()):
             break
         it_end = min(int(its[live].min()) + seg, max_it)
@@ -745,12 +778,15 @@ def _run_iterative_chunked_batch(r, src, dst, theta, params: DRSCertifierParams)
     return state[2], state[3], state[0], state[9]
 
 
-def _certify_batch_core(r, src, dst, theta, params: DRSCertifierParams):
+def _certify_batch_core(r, src, dst, theta, params: DRSCertifierParams,
+                        stage_ms: Optional[Dict[str, float]] = None):
     """(best, traj, iters, sat) of a (B, ...) batch in the params' mode; DENSE
-    never saturates."""
+    never saturates. A ``stage_ms`` dict gets DENSE's stages ``psd`` and
+    ``gap``."""
+    CERTIFY["groups"] += 1
     if params.eig_decomposition_solver == EigSolverType.ITERATIVE:
         return _run_iterative_chunked_batch(r, src, dst, theta, params)
-    best, traj, it = _certify_core_batch(r, src, dst, theta, params)
+    best, traj, it = _certify_core_batch(r, src, dst, theta, params, stage_ms)
     return best, traj, it, torch.zeros_like(best, dtype=torch.bool)
 
 
@@ -760,15 +796,23 @@ def _certify_dispatch(r, src, dst, theta, params: DRSCertifierParams):
     return _lane(_certify_batch_core(*_batched((r, src, dst, theta)), params))
 
 
-def _signed_theta(theta) -> np.ndarray:
-    """+-1 floats from +-1 floats or booleans, on the host."""
-    theta = _host(theta)
-    return np.where(theta, 1.0, -1.0) if theta.dtype == bool else theta
-
-
 def _host(a) -> np.ndarray:
     """A host copy of a tensor or array-like (writable, so torch can wrap it)."""
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.array(a)
+
+
+def _inputs(rotations, src, dst, thetas, device: torch.device, dtype) -> List[torch.Tensor]:
+    """The four inputs as ``dtype`` tensors on ``device``, theta as +-1. A
+    tensor goes there directly (one already there stays), an array-like
+    through the host; the numbers are the same either way."""
+    out = []
+    for a in (rotations, src, dst, thetas):
+        if not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(np.array(a))
+        if a.dtype == torch.bool:  # the inlier flags
+            a = torch.where(a, 1.0, -1.0)
+        out.append(a.to(device=device, dtype=dtype))
+    return out
 
 
 def _ckpt_fingerprint(r, src, dst, theta, params: DRSCertifierParams, dtype) -> str:
@@ -835,8 +879,9 @@ def certify_checkpointed(
     if params.eig_decomposition_solver != EigSolverType.ITERATIVE:
         raise ValueError("certify_checkpointed requires the ITERATIVE solver")
     dev = resolve_device(device)
-    theta = _signed_theta(theta).reshape(-1)
-    fp = _ckpt_fingerprint(rotation, src, dst, theta, params, dtype)
+    args = [a[None] for a in _inputs(rotation, src, dst, theta, dev, dtype)]
+    args[3] = args[3].reshape(1, -1)
+    fp = _ckpt_fingerprint(rotation, src, dst, args[3][0], params, dtype)
     seg = _resolved_seg(params)
     max_it = params.max_iterations
 
@@ -858,8 +903,6 @@ def certify_checkpointed(
             state = consts = None  # an unreadable or partial file: start over
             round_idx, prev_traj = 0, []
     if state is None:
-        args = [torch.as_tensor(_host(a), dtype=dtype, device=dev)[None]
-                for a in (rotation, src, dst, theta)]
         state, consts = _iterative_init_batch(*args, params)
 
     def save():
@@ -945,7 +988,9 @@ def certify_checkpointed(
 
 
 def _results(best, traj, iters, sat, params: DRSCertifierParams) -> List[CertificationResult]:
-    best, traj, iters, sat = (_host(x) for x in (best, traj, iters, sat))
+    best, traj, iters, sat = (_read(x).numpy() for x in (best, traj, iters, sat))
+    CERTIFY["lanes"] += len(best)
+    CERTIFY["lane_iterations"] += int(iters.sum())
     out = []
     for b in range(len(best)):
         is_optimal = bool(best[b] < params.sub_optimality)
@@ -969,15 +1014,21 @@ def certify_batch(
     max_device_batch: Optional[int] = None,
     device: DeviceLike = None,
     dtype: torch.dtype = torch.float64,
+    stage_ms: Optional[Dict[str, float]] = None,
 ) -> List[CertificationResult]:
     """Certify a batch of rotation solutions, the problems as lanes of one loop.
 
     Args:
       rotations: (B, 3, 3); src_tims/dst_tims: (B, 3, N); thetas: (B, N) of
-        +-1 (or bool).
+        +-1 (or bool). Tensors go to ``device`` directly, so inputs already
+        there stay there.
       max_device_batch: at most this many lanes a loop; larger batches run
         as consecutive chunks (a lane's numbers do not depend on the others,
         so no chunk is padded).
+      stage_ms: a dict to add the host wall time (ms) of DENSE's stages
+        ``psd`` (the PSD projections) and ``gap`` (the gaps' eigenvalue
+        solves) to, each summed over the iterations; the device is
+        synchronised at each mark. ITERATIVE records no stages.
     Returns:
       a list of :class:`CertificationResult`, lane b equal to
       ``DRSCertifier.certify`` on problem b. In ITERATIVE mode the lanes that
@@ -985,20 +1036,20 @@ def certify_batch(
     """
     params = params or DRSCertifierParams()
     dev = resolve_device(device)
-    rotations, src_tims, dst_tims = (_host(a) for a in (rotations, src_tims, dst_tims))
-    thetas = _signed_theta(thetas)
+    rotations, src_tims, dst_tims, thetas = _inputs(rotations, src_tims, dst_tims, thetas,
+                                                    dev, dtype)
     b = rotations.shape[0]
     if max_device_batch and b > max_device_batch:
         out: List[CertificationResult] = []
         for s in range(0, b, max_device_batch):
             e = min(s + max_device_batch, b)
             out.extend(certify_batch(rotations[s:e], src_tims[s:e], dst_tims[s:e],
-                                     thetas[s:e], params, max_device_batch, dev, dtype))
+                                     thetas[s:e], params, max_device_batch, dev, dtype,
+                                     stage_ms))
         return out
 
-    args = [torch.as_tensor(a, dtype=dtype, device=dev)
-            for a in (rotations, src_tims, dst_tims, thetas)]
-    results = _results(*_certify_batch_core(*args, params), params)
+    results = _results(*_certify_batch_core(rotations, src_tims, dst_tims, thetas, params,
+                                            stage_ms), params)
     # adaptive rank growth: re-enter the saturated lanes at twice the rank
     if params.eig_decomposition_solver == EigSolverType.ITERATIVE:
         npm = 4 * src_tims.shape[-1] + 4
@@ -1007,7 +1058,8 @@ def certify_batch(
         if sat_idx and k < npm:
             grown = params.replace(psd_projection_rank=min(2 * k, npm))
             redo = certify_batch(rotations[sat_idx], src_tims[sat_idx], dst_tims[sat_idx],
-                                 thetas[sat_idx], grown, max_device_batch, dev, dtype)
+                                 thetas[sat_idx], grown, max_device_batch, dev, dtype,
+                                 stage_ms)
             for i, res in zip(sat_idx, redo):
                 results[i] = res
     return results
@@ -1042,8 +1094,8 @@ class DRSCertifier:
         subspace saturated it starts again at twice the rank, until the
         rank is the full space.
         """
-        args = [torch.as_tensor(_host(a), dtype=self.dtype, device=self.device)[None]
-                for a in (rotation, src, dst, _signed_theta(theta).reshape(-1))]
+        args = [a[None] for a in _inputs(rotation, src, dst, theta, self.device, self.dtype)]
+        args[3] = args[3].reshape(1, -1)
         params = self.params
         npm = 4 * args[1].shape[-1] + 4
         while True:

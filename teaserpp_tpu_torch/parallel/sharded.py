@@ -54,10 +54,10 @@ from teaserpp_tpu_torch.parallel.multihost import Mesh, require_mesh, shard_rang
 from teaserpp_tpu_torch.params import RobustRegistrationSolverParams
 from teaserpp_tpu_torch.solvers.pipeline import (
     PipelineSolution,
-    _StageClock,
     _to_device,
     rotation_translation_stage,
 )
+from teaserpp_tpu_torch.utils.timing import StageClock
 
 
 class LargeSolveResult(NamedTuple):
@@ -122,7 +122,7 @@ def candidate_scores(
     dst: torch.Tensor,
     params: RobustRegistrationSolverParams,
     blocked_threshold: int = 16384,
-    clock: Optional[_StageClock] = None,
+    clock: Optional[StageClock] = None,
     shard: Optional[PairsShard] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-vertex ranking for the subgraph selection and the max core number.
@@ -136,7 +136,7 @@ def candidate_scores(
     summed over the shard's axis. Returns (score (N,) int32, max_core scalar
     int32), equal on every rank.
     """
-    clock = clock or _StageClock(None, src.device)
+    clock = clock or StageClock(None, src.device)
     n = src.shape[-1]
     if n > blocked_threshold:
         adj_bits = _adjacency_bits_fast(src, dst, params, shard)
@@ -191,7 +191,7 @@ def _large_registration_impl(
     shard: Optional[PairsShard] = None,
 ) -> LargeSolveResult:
     n = src.shape[-1]
-    clock = _StageClock(stage_ms, src.device)
+    clock = StageClock(stage_ms, src.device)
     score, max_core = candidate_scores(src, dst, params, blocked_threshold, clock, shard)
 
     # Reduce to the densest subgraph: the top `subgraph_size` vertices by

@@ -23,7 +23,6 @@ batched path is not exact in either package; the facade
 
 from __future__ import annotations
 
-import time
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -53,6 +52,7 @@ from teaserpp_tpu_torch.solvers.rotation import (
 )
 from teaserpp_tpu_torch.solvers.scale import select_scale_inliers, solve_scale_tls
 from teaserpp_tpu_torch.solvers.translation import solve_translation_tls
+from teaserpp_tpu_torch.utils.timing import StageClock
 
 
 # Events (2K a problem, K = N(N-1)/2 TIM pairs) that the unknown-scale
@@ -94,28 +94,6 @@ class PipelineSolution(NamedTuple):
     translation_inlier_mask: torch.Tensor  # (B, N) bool over original measurements
     rotation_cost: torch.Tensor  # (B,) GNC cost at termination
     rotation_iterations: torch.Tensor  # (B,) int32
-
-
-class _StageClock:
-    """Host wall time per stage, synchronising the device at each mark.
-
-    With ``out`` None it does nothing, so the solve stays free of syncs.
-    """
-
-    def __init__(self, out: Optional[Dict[str, float]], device: torch.device):
-        self.out, self.device = out, device
-        self._t = self._now() if out is not None else 0.0
-
-    def _now(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def mark(self, stage: str) -> None:
-        if self.out is not None:
-            t = self._now()
-            self.out[stage] = self.out.get(stage, 0.0) + (t - self._t) * 1e3
-            self._t = t
 
 
 def _solve_rotation(
@@ -167,7 +145,7 @@ def _select_inliers(
     n: int,
     params: RobustRegistrationSolverParams,
     valid: Optional[torch.Tensor],
-    clock: "_StageClock",
+    clock: "StageClock",
     peel_stage: str,
 ) -> torch.Tensor:
     """Inlier selection of JAX ``device_clique_from_adjacency`` on row-packed
@@ -223,7 +201,7 @@ def device_clique_from_bits(
     """Inlier selection on each problem's row-packed (B, W, N) adjacency
     words -> (B, N) bool mask: the top k-core or the greedy clique, as
     :func:`device_clique_from_adjacency` says."""
-    return _select_inliers(adj_bits, n, params, valid, _StageClock(None, adj_bits.device),
+    return _select_inliers(adj_bits, n, params, valid, StageClock(None, adj_bits.device),
                            "peel")
 
 
@@ -241,7 +219,7 @@ def device_clique_from_adjacency(
     (not an exact search, in either package). ``valid`` is ANDed in last.
     """
     return _select_inliers(pack_bits_u32_rows(adj), adj.shape[-1], params, valid,
-                           _StageClock(None, adj.device), "clique")
+                           StageClock(None, adj.device), "clique")
 
 
 def _words_from_pairs(pair_mask: torch.Tensor, n: int,
@@ -271,7 +249,7 @@ def device_clique_stage(
         mask = torch.ones((pair_mask.shape[0], n), dtype=torch.bool, device=pair_mask.device)
         return mask if valid is None else mask & valid
     return _select_inliers(_words_from_pairs(pair_mask, n, valid), n, params, valid,
-                           _StageClock(None, pair_mask.device), "clique")
+                           StageClock(None, pair_mask.device), "clique")
 
 
 def _polish_rt(src, dst, scale, rotation, translation, inlier_mask):
@@ -309,7 +287,7 @@ def rotation_translation_stage(
     (registration.cc:708), translation solve on the clique points
     (registration.cc:717-727). ``scale`` is (B,).
     """
-    clock = _StageClock(stage_ms, src.device)
+    clock = StageClock(stage_ms, src.device)
     src_ctims, tim_valid = chain_tims(src, clique_mask)
     dst_ctims, _ = chain_tims(dst, clique_mask)
     inv_s = 1.0 / scale
@@ -441,7 +419,7 @@ def register_pair(
         if valid is None else _to_device(valid, dev, torch.bool)
     )
 
-    clock = _StageClock(stage_ms, dev)
+    clock = StageClock(stage_ms, dev)
     if not params.estimate_scaling and mode != InlierSelectionMode.NONE:
         bits = trim_adjacency_bits(src, dst, params.noise_bound, params.cbar2, valid)
         clock.mark("bits")
@@ -463,7 +441,7 @@ def register_pair(
 
 
 def _chunked_scale_stage(src, dst, params, valid, graph: bool, use_matmul_norms: bool,
-                         clock: _StageClock):
+                         clock: StageClock):
     """:func:`scale_stage` and, with ``graph``, the packed pair-mask words,
     over a (B, 3, N) batch in chunks of problems -> ``(scale (B,), pair_mask
     (B, K), words (B, W, N) or None)``.

@@ -48,6 +48,28 @@ class StageTimer:
         return dict(self.durations)
 
 
+class StageClock:
+    """Host wall time per stage, synchronising the device at each mark.
+
+    With ``out`` None it does nothing, so the solve stays free of syncs.
+    """
+
+    def __init__(self, out: Optional[Dict[str, float]], device: torch.device):
+        self.out, self.device = out, device
+        self._t = self._now() if out is not None else 0.0
+
+    def _now(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def mark(self, stage: str) -> None:
+        if self.out is not None:
+            t = self._now()
+            self.out[stage] = self.out.get(stage, 0.0) + (t - self._t) * 1e3
+            self._t = t
+
+
 @contextlib.contextmanager
 def trace_to(log_dir: Optional[str]):
     """Record a ``torch.profiler`` trace of the block into ``log_dir``; a
